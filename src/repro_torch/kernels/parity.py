@@ -1,0 +1,318 @@
+"""Seeded inputs for the gang kernels, and the kernel-against-plain check.
+
+The generators build numpy state and batches that reach every branch of
+the kernels: a pre-filled table whose keys the batch hits again, idempotent
+duplicates (a retried rpc), conflicts and mergeable-class stacking, rows
+flooded past their ways (FULL), multi-key groups with same-row keys, stale
+rpc gc entries, aged lanes, and ring spans that wrap past CAP.  An rpc's op
+class is a function of its identity (one rpc is one op), as in the protocol.
+
+The same inputs serve the CPU tests (plain versions against the JAX
+package's oracles) and ``chip_smoke.py`` (each CUDA kernel against its
+plain version on the card, :func:`check_kernels`).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from . import ops, ref
+
+# SET, INCR, SADD, OTHER: conflicting, mergeable and catch-all classes.
+CLASSES = np.array([0, 2, 5, 8], np.int32)
+
+# The outcomes (reason codes; gc: cleared bits) each kernel's inputs must
+# reach.  A fused batch carries fresh rpcs only, so its record stage never
+# meets a DUP; that stage is the gang_record kernel, whose own inputs do.
+BRANCHES = {"gang_record": (1, 2, 3, 4), "gang_record_groups": (1, 2, 3, 4),
+            "gang_gc": (0, 1), "gang_fastpath": (1, 3, 4)}
+
+
+def cls_of_rpc(rpc_lo) -> np.ndarray:
+    return CLASSES[np.asarray(rpc_lo, np.int64) % len(CLASSES)]
+
+
+@dataclass
+class KeyPool:
+    """Raw 64-bit keyhash lanes and their mixed lanes, bucketed by set."""
+    hi: np.ndarray
+    lo: np.ndarray
+    q_hi: np.ndarray
+    q_lo: np.ndarray
+    by_set: Dict[int, np.ndarray]
+
+
+def key_pool(rng: np.random.Generator, n: int, n_sets: int) -> KeyPool:
+    hi = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    hi[: n // 8] |= np.uint32(0x80000000)       # sign bits set on purpose
+    qh, ql = ref.np_keyhash2x32(hi, lo)
+    sets = (ql & np.uint32(n_sets - 1)).astype(np.int64)
+    order = np.argsort(sets, kind="stable")
+    bounds = np.searchsorted(sets[order], np.arange(n_sets + 1))
+    by_set = {s: order[bounds[s]:bounds[s + 1]] for s in range(n_sets)}
+    return KeyPool(hi, lo, qh, ql, by_set)
+
+
+def gang_planes(rng: np.random.Generator, pool: KeyPool, n_lanes: int,
+                n_sets: int, n_ways: int, n_rpcs: int,
+                fill: float = 0.5) -> Tuple[np.ndarray, ...]:
+    """A pre-filled gang (six planes, the JAX package's dtypes): about
+    ``fill`` of the ways hold pool keys (each key at most once per row)
+    under rpcs drawn from ``n_rpcs`` identities, with ages 0..4."""
+    R = n_lanes * n_sets
+    khi = np.zeros((R, n_ways), np.uint32)
+    klo = np.zeros((R, n_ways), np.uint32)
+    occ = np.zeros((R, n_ways), np.int32)
+    rhi = np.zeros((R, n_ways), np.uint32)
+    rlo = np.zeros((R, n_ways), np.uint32)
+    age = np.zeros((R, n_ways), np.int32)
+    n_fill = int(fill * R * n_ways)
+    picks = rng.integers(0, len(pool.hi), n_fill)
+    lanes = rng.integers(0, n_lanes, n_fill)
+    rpcs = rng.integers(0, n_rpcs, n_fill)
+    for k, lane, rpc in zip(picks, lanes, rpcs):
+        row = lane * n_sets + int(pool.q_lo[k] & np.uint32(n_sets - 1))
+        held = (occ[row] > 0) & (khi[row] == pool.q_hi[k]) \
+            & (klo[row] == pool.q_lo[k])
+        free = np.flatnonzero(occ[row] == 0)
+        if held.any() or not free.size:
+            continue
+        w = free[rng.integers(0, free.size)]
+        khi[row, w], klo[row, w] = pool.q_hi[k], pool.q_lo[k]
+        rhi[row, w], rlo[row, w] = 7, rpc
+        occ[row, w] = 1 + cls_of_rpc(rpc)
+        age[row, w] = rng.integers(0, 5)
+    return khi, klo, occ, rhi, rlo, age
+
+
+def record_batch(rng: np.random.Generator, pool: KeyPool, B: int,
+                 n_lanes: int, n_sets: int, n_rpcs: int,
+                 flood: int = 8) -> Dict[str, np.ndarray]:
+    """[B] single-key queries: pool keys (hits and retries), fresh keys,
+    and a flood of ``flood`` distinct keys into one row of lane 0."""
+    k = rng.integers(0, len(pool.hi), B)
+    key_hi, key_lo = pool.hi[k].copy(), pool.lo[k].copy()
+    fresh = rng.random(B) < 0.25
+    key_hi[fresh] = rng.integers(0, 2**32, fresh.sum(), dtype=np.uint64)
+    key_lo[fresh] = rng.integers(0, 2**32, fresh.sum(), dtype=np.uint64)
+    lanes = rng.integers(0, n_lanes, B).astype(np.int32)
+    rpc_lo = rng.integers(0, n_rpcs, B).astype(np.uint32)
+    # Retries: a later query repeats an earlier one (same key, lane, rpc).
+    for b in np.flatnonzero(rng.random(B) < 0.15):
+        if b:
+            src = rng.integers(0, b)
+            key_hi[b], key_lo[b] = key_hi[src], key_lo[src]
+            lanes[b], rpc_lo[b] = lanes[src], rpc_lo[src]
+    big = max(pool.by_set.values(), key=len)
+    if flood and B >= flood and len(big) >= flood:
+        at = rng.choice(B - flood + 1)
+        sel = big[:flood]
+        key_hi[at:at + flood] = pool.hi[sel]
+        key_lo[at:at + flood] = pool.lo[sel]
+        lanes[at:at + flood] = 0
+        rpc_lo[at:at + flood] = np.arange(flood) * len(CLASSES) + n_rpcs
+    return dict(key_hi=key_hi, key_lo=key_lo, lanes=lanes,
+                rpc_hi=np.full(B, 7, np.uint32), rpc_lo=rpc_lo,
+                key_cls=cls_of_rpc(rpc_lo))
+
+
+def group_batch(rng: np.random.Generator, pool: KeyPool, G: int, K: int,
+                n_lanes: int, n_rpcs: int) -> Dict[str, np.ndarray]:
+    """[G, K] groups of 1..K keys: same-row keys (one set's bucket), pool
+    keys, and exact repeats of earlier groups (dup-all retries)."""
+    key_hi = np.zeros((G, K), np.uint32)
+    key_lo = np.zeros((G, K), np.uint32)
+    key_valid = np.zeros((G, K), np.int32)
+    lanes = rng.integers(0, n_lanes, G).astype(np.int32)
+    rpc_lo = rng.integers(0, n_rpcs, G).astype(np.uint32)
+    buckets = [b for b in pool.by_set.values() if len(b) >= K]
+    for g in range(G):
+        n = int(rng.integers(1, K + 1))
+        if g >= 2 and rng.random() < 0.2:           # retry an earlier group
+            src = int(rng.integers(0, g))
+            key_hi[g], key_lo[g] = key_hi[src], key_lo[src]
+            key_valid[g], lanes[g], rpc_lo[g] = (key_valid[src], lanes[src],
+                                                 rpc_lo[src])
+            continue
+        if buckets and rng.random() < 0.4:          # same-row keys
+            b = buckets[int(rng.integers(0, len(buckets)))]
+            sel = rng.choice(b, n, replace=False)
+        else:
+            sel = rng.integers(0, len(pool.hi), n)
+        key_hi[g, :n] = pool.hi[sel]
+        key_lo[g, :n] = pool.lo[sel]
+        key_valid[g, :n] = 1
+    key_cls = np.repeat(cls_of_rpc(rpc_lo)[:, None], K, axis=1)
+    return dict(key_hi=key_hi, key_lo=key_lo, key_valid=key_valid,
+                lanes=lanes, rpc_hi=np.full(G, 7, np.uint32), rpc_lo=rpc_lo,
+                key_cls=key_cls)
+
+
+def gc_batch(rng: np.random.Generator, planes, n_sets: int, G: int,
+             n_rpcs: int) -> Dict[str, np.ndarray]:
+    """[G] deduplicated gc entries: held (key, rpc) pairs, the same keys
+    under a stale rpc, and unknown keys; plus a random aged-lane mask."""
+    khi, klo, occ, rhi, rlo, _age = planes
+    R, W = occ.shape
+    L = R // n_sets
+    rows, ways = np.nonzero(occ > 0)
+    pick = rng.integers(0, max(len(rows), 1), G)
+    g_hi = khi[rows[pick], ways[pick]] if len(rows) else np.zeros(G, np.uint32)
+    g_lo = klo[rows[pick], ways[pick]] if len(rows) else np.zeros(G, np.uint32)
+    g_rh = rhi[rows[pick], ways[pick]] if len(rows) else np.zeros(G, np.uint32)
+    g_rl = rlo[rows[pick], ways[pick]] if len(rows) else np.zeros(G, np.uint32)
+    g_lane = (rows[pick] // n_sets).astype(np.int32) if len(rows) \
+        else np.zeros(G, np.int32)
+    stale = rng.random(G) < 0.25
+    g_rl = np.where(stale, g_rl + np.uint32(n_rpcs + 1), g_rl).astype(np.uint32)
+    unknown = rng.random(G) < 0.1
+    g_hi = np.where(unknown, rng.integers(0, 2**32, G, dtype=np.uint64),
+                    g_hi).astype(np.uint32)
+    uniq = np.unique(np.stack([g_lane.astype(np.uint32), g_hi, g_lo, g_rh,
+                               g_rl]), axis=1)
+    uniq = uniq[:, rng.permutation(uniq.shape[1])]
+    aged = (rng.random(L) < 0.5).astype(np.int32)
+    return dict(g_hi=uniq[1], g_lo=uniq[2], g_rpc_hi=uniq[3], g_rpc_lo=uniq[4],
+                g_lane=uniq[0].astype(np.int32), aged_lanes=aged)
+
+
+def fastpath_batch(rng: np.random.Generator, pool: KeyPool, B: int, NS: int,
+                   CAP: int, f: int, n_lanes: int, n_slots: int,
+                   n_rpcs: int) -> Dict[str, np.ndarray]:
+    """One cluster batch and the rings it meets: [B] ops over pool keys
+    (repeats make in-batch conflicts), a random slot map, a lane map, and
+    per-shard rings whose live spans start anywhere (wrapping past CAP) and
+    hold pool keys, with room left for this batch's appends."""
+    k = rng.integers(0, len(pool.hi) // 4 + 1, B)
+    key_hi, key_lo = pool.hi[k], pool.lo[k]
+    rpc_lo = (rng.permutation(n_rpcs + B)[:B]).astype(np.uint32)
+    exec_pred = (rng.random(B) < 0.9).astype(np.int32)
+    slot_map = rng.integers(0, NS, n_slots).astype(np.int32)
+    lane_map = (np.arange(NS * f, dtype=np.int32) % n_lanes).reshape(NS, f)
+    qh, ql = pool.q_hi[k], pool.q_lo[k]
+    shard = slot_map[ql % np.uint32(n_slots)]
+    appends = np.bincount(shard[exec_pred == 1], minlength=NS)
+    tail = rng.integers(0, CAP, NS).astype(np.int32)
+    tail[: NS // 2] = CAP - rng.integers(1, 8, NS // 2)     # wrap past CAP
+    count = np.minimum(rng.integers(0, CAP, NS), CAP - appends).astype(np.int32)
+    ring_k = rng.integers(0, len(pool.hi) // 4 + 1, (NS, CAP))
+    ring_hi = pool.q_hi[ring_k]
+    ring_lo = pool.q_lo[ring_k]
+    ring_cls = CLASSES[rng.integers(0, len(CLASSES), (NS, CAP))]
+    return dict(key_hi=key_hi, key_lo=key_lo, rpc_hi=np.full(B, 9, np.uint32),
+                rpc_lo=rpc_lo, exec_pred=exec_pred, slot_map=slot_map,
+                lane_map=lane_map, tail_slot=tail, count=count,
+                key_cls=cls_of_rpc(rpc_lo), ring_hi=ring_hi, ring_lo=ring_lo,
+                ring_cls=ring_cls)
+
+
+# ---------------------------------------------------------------------------
+# Kernel against plain version, on the same device tensors
+# ---------------------------------------------------------------------------
+@dataclass
+class Parity:
+    name: str
+    max_abs_err: int            # largest |kernel - plain| over every output
+    outputs: int                # number of integers compared
+    coverage: np.ndarray        # the kernel's reason codes (gc: cleared
+    #                             bits) counted by value, 0..4
+
+    @property
+    def missed(self) -> List[int]:
+        """The outcomes of ``BRANCHES`` these inputs never reached."""
+        return [v for v in BRANCHES[self.name] if self.coverage[v] == 0]
+
+
+def _diff(pairs) -> Tuple[int, int]:
+    err, n = 0, 0
+    for a, b in pairs:
+        a = a.to(torch.int64)
+        b = b.to(torch.int64)
+        if a.shape != b.shape:
+            raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+        if a.numel():
+            err = max(err, int((a - b).abs().max()))
+        n += a.numel()
+    return err, n
+
+
+def check_kernels(planes, n_sets: int, rec: dict, grp: dict, gc: dict,
+                  fp: dict, f: int, device="cuda") -> List[Parity]:
+    """Run each CUDA kernel and its plain version on identical copies of
+    the same device tensors; compare every output, every table plane, the
+    rings and the counter plane.  Returns one :class:`Parity` per kernel."""
+    device = torch.device(device)
+    base = ref.gang_from_numpy(planes, device)
+    L = base.occ.shape[0] // n_sets
+    out = []
+
+    def twins():
+        return [(base.clone(), torch.zeros((L, ref.N_REASON_CODES),
+                                           dtype=torch.int32, device=device))
+                for _ in range(2)]
+
+    (ta, ca), (tb, cb) = twins()
+    args = ops.record_operands(base, n_sets, **rec)
+    ra = ops.gang_record_cuda(ta, n_sets, *args, ca)
+    rb = ref.gang_record_plain(tb, n_sets, *args, cb)
+    out.append(Parity("gang_record", *_diff(
+        list(zip(ra, rb)) + list(zip(ta, tb)) + [(ca, cb)]),
+        _coverage(ra[0][args[3] == 1])))
+
+    (ta, ca), (tb, cb) = twins()
+    args = ops.groups_operands(base, n_sets, **grp)
+    ra = ops.gang_groups_cuda(ta, n_sets, *args, ca)
+    rb = ref.gang_groups_plain(tb, n_sets, *args, cb)
+    out.append(Parity("gang_record_groups", *_diff(
+        list(zip(ra, rb)) + list(zip(ta, tb)) + [(ca, cb)]),
+        _coverage(ra[0][args[7] == 1])))
+
+    for do_age in (True, False):
+        (ta, _), (tb, _) = twins()
+        args = ops.gc_operands(base, n_sets, **gc)
+        ra = ops.gang_gc_cuda(ta, n_sets, *args, do_age)
+        rb = ref.gang_gc_plain(tb, n_sets, *args, do_age)
+        err, n = _diff([(ra, rb)] + list(zip(ta, tb)))
+        cov = _coverage(ra[args[5] == 1])
+        if not do_age:
+            prev = out.pop()
+            err, n = max(err, prev.max_abs_err), n + prev.outputs
+            cov = cov + prev.coverage
+        out.append(Parity("gang_gc", err, n, cov))
+
+    (ta, ca), (tb, cb) = twins()
+    fp = dict(fp)
+    rings = ref.ring_from_numpy(fp.pop("ring_hi"), fp.pop("ring_lo"),
+                                fp.pop("ring_cls"), device)
+    ring_a = [r.clone() for r in rings]
+    ring_b = [r.clone() for r in rings]
+    args = ops.fastpath_operands(base, n_sets, **fp)
+    k_hi, k_lo, k_cls, k_valid, r_hi, r_lo, ex, sm, lm, tail, count = args
+    ra = ops.gang_fastpath_cuda(ta, n_sets, f, k_hi, k_lo, k_cls, k_valid,
+                                r_hi, r_lo, ex, sm, lm, *ring_a, tail, count, ca)
+    rb = ref.gang_fastpath_plain(tb, n_sets, f, k_hi, k_lo, k_cls, k_valid,
+                                 r_hi, r_lo, ex, sm, lm, *ring_b, tail, count,
+                                 cb)
+    out.append(Parity("gang_fastpath", *_diff(
+        list(zip(ra, rb)) + list(zip(ta, tb)) + list(zip(ring_a, ring_b))
+        + [(ca, cb)]), _coverage(ra[0][k_valid.repeat_interleave(f) == 1])))
+    return out
+
+
+def _coverage(values: torch.Tensor) -> np.ndarray:
+    return reason_coverage(values.cpu().numpy())
+
+
+def reason_coverage(reasons: np.ndarray) -> np.ndarray:
+    """How often each reason code 0..4 occurs (tests assert the inputs
+    reach every branch)."""
+    return np.bincount(np.asarray(reasons).reshape(-1), minlength=5)
+
+
+__all__ = ["BRANCHES", "CLASSES", "KeyPool", "Parity", "check_kernels", "cls_of_rpc",
+           "fastpath_batch", "gang_planes", "gc_batch", "group_batch",
+           "key_pool", "reason_coverage", "record_batch"]

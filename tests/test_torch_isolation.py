@@ -1,0 +1,104 @@
+"""The port stands alone: no JAX and nothing of ``repro`` in ``repro_torch``,
+and its entry points run on the card unless the caller asks for the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+
+
+def test_import_pulls_in_neither_jax_nor_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core, repro_torch.kernels\n"
+        "import repro_torch.kernels.parity\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    done = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stdout + done.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT) for p in PORT.rglob("*.py")]
+    + [Path("chip_smoke.py")]), ids=str)
+def test_source_has_no_jax_or_repro_import(path):
+    hits = _FORBIDDEN.findall((ROOT / path).read_text())
+    assert not hits, f"{path} imports {hits}"
+
+
+def _device_backends():
+    from repro_torch.core import LocalCluster, ShardedCluster, ShardGroup
+    from repro_torch.core.config import ConfigManager
+
+    ids = iter(range(1, 100))
+    return {
+        "ShardedCluster": lambda: ShardedCluster(n_shards=1, f=1,
+                                                 witness_backend="device"),
+        "LocalCluster": lambda: LocalCluster(f=1, witness_backend="device"),
+        "ShardGroup": lambda: ShardGroup(0, ConfigManager(),
+                                         lambda: next(ids), f=1,
+                                         witness_backend="device"),
+    }
+
+
+@pytest.mark.parametrize("name", ["ShardedCluster", "LocalCluster",
+                                  "ShardGroup"])
+def test_device_backend_runs_on_the_card_by_default(name):
+    build = _device_backends()[name]
+    if torch.cuda.is_available():
+        assert build().gang.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            build()
+
+
+def test_python_backend_needs_no_device():
+    from repro_torch.core import ShardedCluster
+
+    c = ShardedCluster(n_shards=2, f=3, witness_backend="python")
+    s = c.new_client()
+    assert c.update(s, s.op_set("k", "v")).fast_path
+    assert c.gang is None
+
+
+def test_wrapper_refuses_devices_it_has_no_kernel_for():
+    from repro_torch.kernels import GangTable, gang_record
+
+    table = GangTable.empty(16, 2, 1, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        gang_record(table, 16, [1], [2], [0], [0], [0])
+
+
+def test_cuda_launcher_refuses_cpu_tensors():
+    from repro_torch.kernels import GangTable, ops
+
+    table = GangTable.empty(16, 2, 1)
+    operands = ops.record_operands(table, 16, np.array([1]), np.array([2]),
+                                   [0], [0], [0])
+    with pytest.raises(ValueError, match="CUDA launcher"):
+        ops.gang_record_cuda(table, 16, *operands)
+
+
+def test_kernel_sources_compile_into_a_hashed_ignored_directory():
+    from repro_torch.kernels import build
+
+    d = build.build_dir()
+    assert d.parent == ROOT / "build" / "repro_torch"
+    assert d == build.build_dir()                     # stable for a checkout
+    ignored = subprocess.run(["git", "check-ignore", "-q", str(d / "x.so")],
+                             cwd=ROOT, timeout=60)
+    assert ignored.returncode == 0
+    assert {p.name for p in build.CSRC.glob("*.cu")} == {
+        "gang_record.cu", "gang_fastpath.cu", "gang_gc.cu", "gang_groups.cu"}

@@ -1,0 +1,306 @@
+"""The port's gang kernels, held against the JAX package's oracles (CPU).
+
+On CPU tensors every public op of ``repro_torch.kernels`` runs the plain
+PyTorch version of its CUDA kernel; these tests feed it the same seeded
+numpy inputs as ``repro.kernels.ref``'s oracles (never ``repro.kernels.ops``,
+whose Pallas bodies need a Pallas with ``pl.load``) and require exact
+integer equality of every reason, mixed lane and table plane.  Shapes: 4
+lanes x 64 sets x 4 ways.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ref import GangTable as JaxGangTable
+from repro.kernels.ref import np_keyhash2x32 as jax_np_keyhash2x32
+from repro.kernels.ref import ref_gang_gc, ref_gang_record
+from repro_torch.kernels import (
+    GangTable,
+    gang_fastpath_batch,
+    gang_from_numpy,
+    gang_gc,
+    gang_record,
+    gang_record_groups,
+    gang_to_numpy,
+    keyhash2x32,
+    np_keyhash2x32,
+    ring_from_numpy,
+    ring_to_numpy,
+)
+from repro_torch.kernels import parity
+
+L, S, W = 4, 64, 4
+N_RPCS = 24
+SEEDS = [0, 1, 2]
+
+
+def _state(seed):
+    rng = np.random.default_rng(seed)
+    pool = parity.key_pool(rng, 4 * S, S)
+    planes = parity.gang_planes(rng, pool, L, S, W, N_RPCS, fill=0.55)
+    return rng, pool, planes
+
+
+def _planes_equal(port: GangTable, oracle) -> None:
+    for name, a, b in zip(("keys_hi", "keys_lo", "occ", "rpc_hi", "rpc_lo",
+                           "age"), gang_to_numpy(port), oracle):
+        np.testing.assert_array_equal(a, np.asarray(b), err_msg=name)
+
+
+def _counts(lanes, reasons, n_lanes=L):
+    out = np.zeros((n_lanes, 5), np.int64)
+    np.add.at(out, (np.asarray(lanes), np.asarray(reasons)), 1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K1 mix (inlined in every gang kernel)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n", [1, 33, 4096])
+def test_keyhash_matches_numpy_with_sign_bits(n):
+    rng = np.random.default_rng(n)
+    hi = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    hi[::2] |= np.uint32(0x80000000)
+    lo[::3] |= np.uint32(0xF0000001)
+    jh, jl = jax_np_keyhash2x32(hi, lo)
+    ph, pl_ = np_keyhash2x32(hi, lo)
+    th, tl = keyhash2x32(torch.from_numpy(hi.view(np.int32)),
+                         torch.from_numpy(lo.view(np.int32)))
+    np.testing.assert_array_equal(ph, jh)
+    np.testing.assert_array_equal(pl_, jl)
+    np.testing.assert_array_equal(th.numpy().view(np.uint32), jh)
+    np.testing.assert_array_equal(tl.numpy().view(np.uint32), jl)
+
+
+def test_gang_state_round_trips_between_packages():
+    _rng, _pool, planes = _state(0)
+    port = gang_from_numpy(planes)
+    assert all(p.dtype == torch.int32 for p in port)
+    _planes_equal(port, planes)
+    ring = [np.array([[0xF0000001, 3]], np.uint32),
+            np.array([[1, 0x80000000]], np.uint32),
+            np.array([[2, 8]], np.int32)]
+    for a, b in zip(ring_to_numpy(*ring_from_numpy(*ring)), ring):
+        np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K2: set-parallel single-key record
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_record_matches_ref_in_batch_order(seed):
+    rng, pool, planes = _state(seed)
+    q = parity.record_batch(rng, pool, 96, L, S, N_RPCS, flood=9)
+    table = gang_from_numpy(planes)
+    counters = torch.zeros((L, 5), dtype=torch.int32)
+    rsn, qh, ql, table, counters = gang_record(
+        table, S, q["key_hi"], q["key_lo"], q["lanes"], q["rpc_hi"],
+        q["rpc_lo"], q["key_cls"], counters=counters)
+    mh, ml = jax_np_keyhash2x32(q["key_hi"], q["key_lo"])
+    groups = [(int(q["lanes"][i]), (int(q["rpc_hi"][i]), int(q["rpc_lo"][i])),
+               [(int(mh[i]), int(ml[i]), int(q["key_cls"][i]))])
+              for i in range(len(mh))]
+    want, want_table = ref_gang_record(JaxGangTable(*planes), S, groups)
+    np.testing.assert_array_equal(rsn, want)
+    np.testing.assert_array_equal(qh, mh)
+    np.testing.assert_array_equal(ql, ml)
+    _planes_equal(table, want_table)
+    np.testing.assert_array_equal(counters.numpy(), _counts(q["lanes"], want))
+    assert all(parity.reason_coverage(rsn)[1:] > 0), "every reason reached"
+
+
+# ---------------------------------------------------------------------------
+# K5: grouped all-or-nothing record
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_record_groups_matches_ref(seed):
+    rng, pool, planes = _state(seed)
+    g = parity.group_batch(rng, pool, 40, 4, L, N_RPCS)
+    table = gang_from_numpy(planes)
+    counters = torch.zeros((L, 5), dtype=torch.int32)
+    res = gang_record_groups(table, S, g["key_hi"], g["key_lo"],
+                             g["key_valid"], g["lanes"], g["rpc_hi"],
+                             g["rpc_lo"], g["key_cls"], counters=counters)
+    mh, ml = jax_np_keyhash2x32(g["key_hi"], g["key_lo"])
+    groups = []
+    for i in range(g["key_hi"].shape[0]):
+        n = int(g["key_valid"][i].sum())
+        groups.append((int(g["lanes"][i]),
+                       (int(g["rpc_hi"][i]), int(g["rpc_lo"][i])),
+                       [(int(mh[i, k]), int(ml[i, k]), int(g["key_cls"][i, k]))
+                        for k in range(n)]))
+    want, want_table = ref_gang_record(JaxGangTable(*planes), S, groups)
+    np.testing.assert_array_equal(res.reasons, want)
+    np.testing.assert_array_equal(res.q_hi, mh)
+    np.testing.assert_array_equal(res.q_lo, ml)
+    _planes_equal(res.table, want_table)
+    np.testing.assert_array_equal(counters.numpy(), _counts(g["lanes"], want))
+    assert all(parity.reason_coverage(res.reasons)[1:] > 0)
+
+
+def test_gang_record_groups_same_row_keys_take_distinct_ways():
+    """Two keys of one group in one row reserve two ways, as the Python
+    witness's placement loop does; a third key with no way left rejects
+    the whole group as FULL and writes nothing."""
+    rng, pool, _planes = _state(3)
+    bucket = next(b for b in pool.by_set.values() if len(b) >= 7)
+    empty = tuple(np.zeros((L * S, W), d) for d in
+                  (np.uint32, np.uint32, np.int32, np.uint32, np.uint32,
+                   np.int32))
+    table = gang_from_numpy(empty)
+    key_hi = np.zeros((2, 5), np.uint32)
+    key_lo = np.zeros((2, 5), np.uint32)
+    key_hi[0, :2], key_lo[0, :2] = pool.hi[bucket[:2]], pool.lo[bucket[:2]]
+    key_hi[1, :5], key_lo[1, :5] = pool.hi[bucket[2:7]], pool.lo[bucket[2:7]]
+    valid = np.array([[1, 1, 0, 0, 0], [1, 1, 1, 1, 1]], np.int32)
+    res = gang_record_groups(table, S, key_hi, key_lo, valid,
+                             np.array([2, 2]), np.array([1, 1]),
+                             np.array([5, 6]))
+    assert list(res.reasons) == [1, 4]
+    row = 2 * S + int(res.q_lo[0, 0] & (S - 1))
+    occ = gang_to_numpy(res.table)[2]
+    assert list(occ[row]) == [1, 1, 0, 0]
+    assert occ.sum() == 2
+
+
+# ---------------------------------------------------------------------------
+# K4: rpc-matched gc with aging
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("do_age", [True, False])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_gc_matches_ref_with_dedup_entries(seed, do_age):
+    rng, _pool, planes = _state(seed)
+    e = parity.gc_batch(rng, planes, S, 80, N_RPCS)
+    table = gang_from_numpy(planes)
+    clr, table = gang_gc(table, S, e["g_hi"], e["g_lo"], e["g_rpc_hi"],
+                         e["g_rpc_lo"], e["g_lane"], e["aged_lanes"],
+                         do_age=do_age)
+    entries = [(int(e["g_lane"][i]), (int(e["g_hi"][i]), int(e["g_lo"][i])),
+                (int(e["g_rpc_hi"][i]), int(e["g_rpc_lo"][i])))
+               for i in range(len(e["g_hi"]))]
+    aged = list(np.flatnonzero(e["aged_lanes"])) if do_age else []
+    want, want_table = ref_gang_gc(JaxGangTable(*planes), S, entries, aged)
+    np.testing.assert_array_equal(clr, np.asarray(want, np.int32))
+    _planes_equal(table, want_table)
+    assert 0 < int(clr.sum()) < len(clr), "clears and stale misses both"
+
+
+def test_gang_gc_identical_entries_both_report_cleared():
+    """Decisions are taken against the pre-gc table (the Pallas cube), so a
+    repeated entry reports 1 twice, where the sequential oracle reports the
+    second as 0."""
+    _rng, _pool, planes = _state(0)
+    rows, ways = np.nonzero(planes[2] > 0)
+    r, w = rows[0], ways[0]
+    one = [planes[i][r, w] for i in (0, 1, 3, 4)]
+    clr, table = gang_gc(gang_from_numpy(planes), S,
+                         [one[0]] * 2, [one[1]] * 2, [one[2]] * 2,
+                         [one[3]] * 2, [r // S] * 2, np.zeros(L, np.int32))
+    assert list(clr) == [1, 1]
+    assert gang_to_numpy(table)[2][r, w] == 0
+
+
+# ---------------------------------------------------------------------------
+# K3: ring scan, in-batch check and append (then K2 at every witness lane)
+# ---------------------------------------------------------------------------
+def _np_ring_stage(fp, n_slots):
+    """numpy transcription of ops.py:795-836 (_gang_fastpath_impl) of the
+    JAX package, one op at a time."""
+    qh, ql = jax_np_keyhash2x32(fp["key_hi"], fp["key_lo"])
+    ring_hi, ring_lo = fp["ring_hi"].copy(), fp["ring_lo"].copy()
+    ring_cls = fp["ring_cls"].copy()
+    tail, count = fp["tail_slot"], fp["count"]
+    NS, CAP = ring_hi.shape
+    matrix = parity.ref.conflict_matrix_np()
+    B = len(qh)
+    shard = fp["slot_map"][ql % np.uint32(n_slots)]
+    cls = fp["key_cls"]
+    app = fp["exec_pred"] == 1
+    conflicts = np.zeros(B, np.int32)
+    new_count = count.astype(np.int64).copy()
+    rank_of = np.zeros(NS, np.int64)
+    writes = []
+    for b in range(B):
+        s = shard[b]
+        mrow = int(matrix[cls[b]])
+        hit = any((c - tail[s]) % CAP < count[s]
+                  and ring_hi[s, c] == qh[b] and ring_lo[s, c] == ql[b]
+                  and (mrow >> int(ring_cls[s, c])) & 1
+                  for c in range(CAP))
+        intra = any(app[j] and shard[j] == s and qh[j] == qh[b]
+                    and ql[j] == ql[b] and (mrow >> int(cls[j])) & 1
+                    for j in range(b))
+        conflicts[b] = int(hit or intra)
+        if app[b]:
+            pos = (tail[s] + count[s] + rank_of[s]) % CAP
+            writes.append((s, pos, qh[b], ql[b], cls[b]))
+            rank_of[s] += 1
+            new_count[s] += 1
+    for s, pos, h, l_, c in writes:      # scan first, then append
+        ring_hi[s, pos], ring_lo[s, pos], ring_cls[s, pos] = h, l_, c
+    return conflicts, shard, qh, ql, new_count, ring_hi, ring_lo, ring_cls
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_fastpath_matches_numpy_loop_and_ref(seed):
+    rng, pool, planes = _state(seed)
+    NS, CAP, f, n_slots = 8, 64, 3, 32
+    fp = parity.fastpath_batch(rng, pool, 48, NS, CAP, f, L, n_slots, N_RPCS)
+    assert (fp["tail_slot"] + fp["count"] > CAP).any(), "a span wraps"
+    table = gang_from_numpy(planes)
+    ring_hi, ring_lo, ring_cls = ring_from_numpy(fp["ring_hi"], fp["ring_lo"],
+                                                 fp["ring_cls"])
+    counters = torch.zeros((L, 5), dtype=torch.int32)
+    res = gang_fastpath_batch(
+        table, S, fp["key_hi"], fp["key_lo"], fp["rpc_hi"], fp["rpc_lo"],
+        fp["exec_pred"], fp["slot_map"], fp["lane_map"], ring_hi, ring_lo,
+        fp["tail_slot"], fp["count"], key_cls=fp["key_cls"],
+        ring_cls=ring_cls, counters=counters)
+    con, shard, qh, ql, new_count, rh, rl, rc = _np_ring_stage(fp, n_slots)
+    np.testing.assert_array_equal(res.conflicts, con)
+    np.testing.assert_array_equal(res.shard_ids, shard)
+    np.testing.assert_array_equal(res.q_hi, qh)
+    np.testing.assert_array_equal(res.q_lo, ql)
+    np.testing.assert_array_equal(res.counts, new_count)
+    for got, want in zip(ring_to_numpy(res.ring_hi, res.ring_lo,
+                                       res.ring_cls), (rh, rl, rc)):
+        np.testing.assert_array_equal(got, want)
+    assert 0 < con.sum() < len(con)
+    # The record stage: every op at its shard's f lanes, ops in batch order.
+    lanes = fp["lane_map"][shard]                                 # [B, f]
+    groups = [(int(lanes[b, j]),
+               (int(fp["rpc_hi"][b]), int(fp["rpc_lo"][b])),
+               [(int(qh[b]), int(ql[b]), int(fp["key_cls"][b]))])
+              for b in range(len(qh)) for j in range(f)]
+    want, want_table = ref_gang_record(JaxGangTable(*planes), S, groups)
+    np.testing.assert_array_equal(res.reasons.reshape(-1), want)
+    _planes_equal(res.table, want_table)
+    np.testing.assert_array_equal(counters.numpy(),
+                                  _counts(lanes.reshape(-1), want))
+
+
+def test_gang_fastpath_overflow_raises():
+    rng, pool, planes = _state(0)
+    fp = parity.fastpath_batch(rng, pool, 16, 1, 8, 1, L, 4, N_RPCS)
+    fp["count"][:] = 8
+    fp["exec_pred"][:] = 1
+    rings = ring_from_numpy(fp["ring_hi"], fp["ring_lo"], fp["ring_cls"])
+    table = gang_from_numpy(planes)
+    with pytest.raises(ValueError, match="ring overflow"):
+        gang_fastpath_batch(
+            table, S, fp["key_hi"], fp["key_lo"],
+            fp["rpc_hi"], fp["rpc_lo"], fp["exec_pred"], fp["slot_map"],
+            fp["lane_map"], rings[0], rings[1], fp["tail_slot"], fp["count"],
+            key_cls=fp["key_cls"], ring_cls=rings[2])
+    # The check runs before the launch: rings and table are untouched.
+    for got, want in zip(ring_to_numpy(*rings),
+                         (fp["ring_hi"], fp["ring_lo"], fp["ring_cls"])):
+        np.testing.assert_array_equal(got, want)
+    _planes_equal(table, planes)
+
+
+def test_out_of_range_lane_raises():
+    table = GangTable.empty(S, W, L)
+    with pytest.raises(ValueError, match="lanes out of range"):
+        gang_record(table, S, [1], [2], [L], [0], [0])
