@@ -26,16 +26,38 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    placement differs from the Python witness's, so their capacity (FULL)
    rejects differ, and an op's path fields may differ only in a shard
    that has had a FULL reject, on either backend, by the op's batch).
+   Also the four single-table kernels, each against its plain version on
+   the same CUDA tensors, outputs and all three table planes bit for bit:
+   keyhash (K1) over the 1,000,000 keys of phase 2's keyspace, with and
+   without the slot route; witness_record (K6) at figure 11's shapes (4096
+   slots at 1, 2, 4 and 8 ways, 8192 queries), at fig_fastpath's
+   collision-heavy parity cases (B = 512) and on a pre-filled 1024 x 4
+   table with classes; fastpath_record_scan (K7) at 1024 x 4 and 1024 x 8,
+   B = 4096, against a 1024-entry window of mixed classes; conflict_scan
+   (K8) at B = 4096, U = 1024 and at B = 1000, U = 777.
 3. Durability: the masters of 4 shards crash half-way through phase 2; at
    the end every acknowledged key is read back and compared with a model of
    the acknowledged writes.
+5. The single-table path through its public ops (run after phase 3; its
+   launches are counted from 0 over this phase alone), at the paper's
+   witness geometry (1024 sets x 4 ways), reproducing the claims of
+   benchmarks/fig_fastpath.py and fig11_witness_capacity.py on the card:
+   the per-op path (keyhash2x32 -> witness_record -> conflict_scan, 64
+   ops) takes at least 3 dispatches per op and fastpath_batch exactly 1
+   per batch; fastpath_batch's records/s (CUDA events around the op) over
+   {256x4, 1024x4, 1024x8} x {64, 512, 4096} rise with the batch at
+   1024x4; figure 11's mean inserts before the first reject at 4096 slots
+   (12 trials) are more than 2.5x higher at 4 ways than direct-mapped; and
+   shard_route places keys as the host SlotRouter does, on the default
+   and on a random slot map.
 4. Times at phase 2's shapes: each kernel and its plain version (CUDA
    events, state restored between calls; gang_record as the record stage
    the fused batch launches, so gang_fastpath's time includes it), each
    kernel's device time (torch.profiler), the least time the card could
    take for the same work (the bytes and operations this run's data needs),
    the fused batches' wall time, the device's idle share during one more
-   fused batch, and the host's self time by source file in another.
+   fused batch, and the host's self time by source file in another.  K1
+   and K6-K8 are timed the same way at phase 5's shapes.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``;
 the line before them names the card and its power limit.  Details also go
@@ -58,6 +80,13 @@ N_SHARDS, F, N_SETS, N_WAYS = 64, 3, 1024, 4
 N_BATCHES, BATCH, N_KEYS, THETA = 48, 1024, 1_000_000, 0.99
 CRASH_AT, CRASH_SHARDS = 24, (0, 17, 33, 50)
 SEED = 20171026
+# The single-table path: the paper's witness geometry (§B.1), fig11's
+# capacity runs, fig_fastpath's sweep, and the window of a 1024-slot ring.
+TABLE_SETS, TABLE_WAYS, WINDOW, TABLE_BATCH = 1024, 4, 1024, 4096
+FIG11_SLOTS, FIG11_WAYS, FIG11_TRIALS = 4096, (1, 2, 4, 8), 12
+SWEEP_GEOMETRIES = ((256, 4), (1024, 4), (1024, 8))
+SWEEP_BATCHES, SWEEP_REPS = (64, 512, 4096), 20
+ROUTE_KEYS = 200_000
 
 
 class SmokeFailure(RuntimeError):
@@ -100,6 +129,68 @@ def phase_parity(np, parity, card, device, sync):
     for r in results:
         say(card, f"parity {r.name}: {r.outputs} integers, "
                   f"max_abs_err {r.max_abs_err}, outcomes by value "
+                  f"{r.coverage.tolist()}")
+        check(r.outputs > 0 and r.max_abs_err == 0,
+              f"{r.name} disagrees with its plain version")
+        check(not r.missed, f"{r.name}: the inputs never reach {r.missed}")
+    return {r.name: r for r in results}
+
+
+def ycsb_key_lanes(np):
+    """Raw keyhash lanes of phase 2's keyspace (keys user0 .. user999999):
+    (hi, lo) uint32 and the 64-bit hashes."""
+    from repro_torch.core.types import keyhash
+
+    kh = np.fromiter((keyhash(f"user{k}") for k in range(N_KEYS)),
+                     np.uint64, N_KEYS)
+    return (kh >> np.uint64(32)).astype(np.uint32), kh.astype(np.uint32), kh
+
+
+def _empty_planes(np, n_sets, n_ways):
+    return (np.zeros((n_sets, n_ways), np.uint32),
+            np.zeros((n_sets, n_ways), np.uint32),
+            np.zeros((n_sets, n_ways), np.int32))
+
+
+def _random_lanes(np, rng, n):
+    return (rng.integers(0, 2**32, n, dtype=np.uint32),
+            rng.integers(0, 2**32, n, dtype=np.uint32))
+
+
+def phase_table_parity(np, parity, card, device, sync, key_lanes):
+    """K1 and K6-K8 against their plain versions at full size."""
+    rng = np.random.default_rng(SEED + 4)
+    keys = dict(hi=key_lanes[0], lo=key_lanes[1],
+                slot_map=rng.integers(0, N_SHARDS, 256).astype(np.int32))
+    records = []
+    for W in FIG11_WAYS:                 # figure 11: empty tables, SET
+        q_hi, q_lo = _random_lanes(np, rng, 2 * FIG11_SLOTS)
+        records.append((_empty_planes(np, FIG11_SLOTS // W, W),
+                        dict(q_hi=q_hi, q_lo=q_lo)))
+    r7 = np.random.default_rng(7)        # fig_fastpath.check_parity's cases
+    for S, W in ((16, 2), (64, 4), (1024, 4)):
+        for span, kspan in ((8, 4), (S * 2, 8), (S * 8, 2**32 - 1)):
+            records.append((_empty_planes(np, S, W), dict(
+                q_hi=r7.integers(0, kspan, 512).astype(np.uint32),
+                q_lo=r7.integers(0, span, 512).astype(np.uint32))))
+    pool = parity.key_pool(rng, 4 * TABLE_SETS, TABLE_SETS)
+    records.append((parity.table_planes(rng, pool, TABLE_SETS, TABLE_WAYS),
+                    parity.table_batch(rng, pool, 2 * FIG11_SLOTS,
+                                       TABLE_WAYS)))
+    fastpaths = []
+    for W in (4, 8):
+        pool = parity.key_pool(rng, 4 * TABLE_SETS, TABLE_SETS)
+        fastpaths.append((parity.table_planes(rng, pool, TABLE_SETS, W),
+                          parity.table_fastpath_batch(
+                              rng, pool, TABLE_BATCH, WINDOW, W, N_SHARDS)))
+    scans = [parity.scan_batch(rng, pool, TABLE_BATCH, WINDOW),
+             parity.scan_batch(rng, pool, 1000, 777)]
+    results = parity.check_table_kernels(keys, records, fastpaths, scans,
+                                         device=device)
+    sync()
+    for r in results:
+        say(card, f"parity {r.name}: {r.outputs} integers, "
+                  f"max_abs_err {r.max_abs_err}, outcomes by code "
                   f"{r.coverage.tolist()}")
         check(r.outputs > 0 and r.max_abs_err == 0,
               f"{r.name} disagrees with its plain version")
@@ -232,7 +323,8 @@ def phase_slice(np, card, device, sync):
     t0 = time.perf_counter()
     run_d = drive(dev, stream, sync)
     wall_d = time.perf_counter() - t0
-    launches = kops.launch_counts()             # ... and are read here
+    launches = {k.name: k.launches               # ... and are read here
+                for k in kops.GANG_KERNELS}
     dispatches = kops.dispatch_count()
     fused = dict(dev._fused.stats)
     check(fused["fused_batches"] > 0, "no batch took the fused path")
@@ -319,6 +411,169 @@ def phase_slice(np, card, device, sync):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the single-table path through its public ops
+# ---------------------------------------------------------------------------
+def phase_table_path(np, torch, card, device, key_lanes):
+    """fig_fastpath's and fig11's claims on the card, and shard_route
+    against the host SlotRouter.  Returns the launches of K1 and K6-K8 over
+    this phase and what it measured."""
+    from repro_torch.core.shard import SlotRouter
+    from repro_torch.kernels import (
+        WitnessTable,
+        conflict_scan,
+        default_slot_map,
+        fastpath_batch,
+        keyhash2x32,
+        ops as kops,
+        shard_route,
+        witness_record,
+    )
+
+    rng = np.random.default_rng(SEED + 5)
+    kops.reset_dispatch_count()
+    kops.reset_launch_counts()                  # counts start here ...
+
+    # Dispatches: the per-op pipeline against one fused batch.
+    khi, klo = _random_lanes(np, rng, 64)
+    win, wv = np.zeros(8, np.uint32), np.zeros(8, np.int32)
+    table = WitnessTable.empty(TABLE_SETS, TABLE_WAYS, device=device)
+    per_op_acc = []
+    for i in range(64):
+        qh, ql = keyhash2x32(khi[i:i + 1], klo[i:i + 1], device=device)
+        acc, table = witness_record(table, qh, ql)
+        conflict_scan(win, win, wv, qh, ql, device=device)
+        per_op_acc.append(int(acc[0]))
+    per_op = kops.dispatch_count() / 64
+    before = kops.dispatch_count()
+    res = fastpath_batch(WitnessTable.empty(TABLE_SETS, TABLE_WAYS,
+                                            device=device),
+                         khi, klo, window_hi=win, window_lo=win,
+                         window_valid=wv)
+    fused = kops.dispatch_count() - before
+    check(per_op >= 3, f"the per-op path took {per_op} dispatches per op")
+    check(fused == 1, f"fastpath_batch took {fused} dispatches")
+    check(list(res.accepted) == per_op_acc,
+          "the fused batch and the per-op path accept differently")
+    say(card, f"table path: per-op path {per_op:.0f} dispatches per op "
+              f"(64 ops), fastpath_batch {fused} per batch")
+
+    # Records/s against batch size, over fig_fastpath's geometries.
+    sweep = []
+    for S, W in SWEEP_GEOMETRIES:
+        for B in SWEEP_BATCHES:
+            bhi, blo = _random_lanes(np, rng, B)
+            t = WitnessTable.empty(S, W, device=device)
+            us = _event_ms(torch, lambda: fastpath_batch(t, bhi, blo),
+                           lambda: [p.zero_() for p in t], SWEEP_REPS) * 1e3
+            sweep.append(dict(geometry=f"{S}x{W}", batch=B, us_per_batch=us,
+                              records_per_s=B / us * 1e6))
+            say(card, f"sweep {S}x{W} batch {B}: {us:.1f} us per batch, "
+                      f"{B / us * 1e6:.0f} records/s")
+    base = [r["records_per_s"] for r in sweep if r["geometry"] == "1024x4"]
+    check(all(a < b for a, b in zip(base, base[1:])),
+          f"records/s do not rise with the batch at 1024x4: {base}")
+
+    # Figure 11: inserts before the first reject, by associativity.
+    fig11 = {}
+    for W in FIG11_WAYS:
+        firsts = []
+        for trial in range(FIG11_TRIALS):
+            r = np.random.default_rng(trial)
+            t = WitnessTable.empty(FIG11_SLOTS // W, W, device=device)
+            qh = r.integers(0, 2**32, 2 * FIG11_SLOTS, dtype=np.uint32)
+            ql = r.integers(0, 2**32, 2 * FIG11_SLOTS, dtype=np.uint32)
+            acc, _ = witness_record(t, qh, ql)
+            rejects = np.flatnonzero(acc == 0)
+            firsts.append(int(rejects[0]) if len(rejects) else len(acc))
+        fig11[W] = float(np.mean(firsts))
+    check(fig11[4] > 2.5 * fig11[1],
+          f"4-way capacity {fig11[4]} is not 2.5x direct-mapped {fig11[1]}")
+    say(card, f"fig11: mean inserts before the first reject at "
+              f"{FIG11_SLOTS} slots over {FIG11_TRIALS} trials, by ways "
+              f"{fig11}; direct-mapped {fig11[1]:.2f} (the paper: about 80); "
+              f"4-way / direct {fig11[4] / fig11[1]:.2f}")
+
+    # shard_route against the host SlotRouter, on the phase 2 keyspace.
+    hi, lo, kh = (a[:ROUTE_KEYS] for a in key_lanes)
+    maps = dict(default=default_slot_map(N_SHARDS),
+                random=rng.integers(0, N_SHARDS, 256).astype(np.int32))
+    for label, sm in maps.items():
+        got = (shard_route(hi, lo, N_SHARDS, device=device)
+               if label == "default" else
+               shard_route(hi, lo, slot_map=sm, device=device))
+        router = SlotRouter(sm.tolist())
+        want = np.fromiter((router.shard_of_hash(int(h)) for h in kh),
+                           np.int32, len(kh))
+        check((got == want).all(),
+              f"shard_route and SlotRouter disagree on the {label} map")
+    say(card, f"shard_route equals SlotRouter on {ROUTE_KEYS} keys, on the "
+              f"default and a random slot map of {N_SHARDS} shards")
+
+    breakdown = _table_breakdown(np, torch, card, rng, device)
+
+    launches = {k.name: k.launches              # ... and are read here
+                for k in kops.TABLE_KERNELS}
+    dispatches = kops.dispatch_count()
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the table path")
+    say(card, f"table path: kernel launches {launches}, dispatches "
+              f"{dispatches}")
+    return launches, dict(per_op_dispatches=per_op, fused_dispatches=fused,
+                          sweep=sweep, fig11=fig11, dispatches=dispatches,
+                          breakdown=breakdown)
+
+
+def _table_breakdown(np, torch, card, rng, device):
+    """Where one fastpath_batch call of TABLE_BATCH ops at 1024 x 4 spends
+    its time: device busy against wall under the profiler, then the host's
+    self time by function over 20 calls under cProfile (shares only:
+    cProfile inflates Python-heavy code)."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import WitnessTable, fastpath_batch
+
+    bhi, blo = _random_lanes(np, rng, TABLE_BATCH)
+    t = WitnessTable.empty(TABLE_SETS, TABLE_WAYS, device=device)
+    fastpath_batch(t, bhi, blo)
+    for p in t:
+        p.zero_()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fastpath_batch(t, bhi, blo)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = _device_us(prof)
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(20):
+        fastpath_batch(t, bhi, blo)
+    torch.cuda.synchronize()
+    prof.disable()
+    by_fn = {}
+    for (path, _line, fn), (_cc, _nc, tt, _ct, _callers) in \
+            pstats.Stats(prof).stats.items():
+        name = fn if path == "~" else f"{Path(path).name}:{fn}"
+        by_fn[name] = by_fn.get(name, 0.0) + tt
+    total = sum(by_fn.values())
+    shares = sorted(((v / total, k) for k, v in by_fn.items()), reverse=True)
+    idle = None if busy_us is None else 1.0 - busy_us / wall_us
+    say(card, f"table path: one fastpath_batch of {TABLE_BATCH} at "
+              f"{TABLE_SETS}x{TABLE_WAYS}: wall {wall_us:.1f} us, device "
+              + ("busy not measured" if busy_us is None else
+                 f"busy {busy_us:.1f} us, idle share {idle:.4f}"))
+    say(card, f"table path: host self time of 20 calls under cProfile, "
+              f"{total * 1e3:.1f} ms, by function: "
+              + ", ".join(f"{k} {sh:.3f}" for sh, k in shares[:8]))
+    return dict(wall_us=wall_us, busy_us=busy_us, idle_share=idle,
+                host_ms=total * 1e3,
+                shares={k: sh for sh, k in shares[:20]})
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: times at phase 2's shapes
 # ---------------------------------------------------------------------------
 def _event_ms(torch, fn, restore, iters):
@@ -339,29 +594,34 @@ def _event_ms(torch, fn, restore, iters):
     return total / iters
 
 
-def _device_us(prof):
+def _device_us(prof, only=None):
     """Device time in a torch.profiler trace taken with CUDA activity only
-    (kernels, fills and copies), in µs; None if the trace saw none."""
+    (kernels, fills and copies), in µs; with ``only``, of the entries whose
+    name holds it.  None if the trace saw none."""
     total = 0.0
     for e in prof.key_averages():
-        total += (getattr(e, "self_device_time_total", 0)
-                  or getattr(e, "self_cuda_time_total", 0))
+        if only is None or only in e.key:
+            total += (getattr(e, "self_device_time_total", 0)
+                      or getattr(e, "self_cuda_time_total", 0))
     return total or None
 
 
-def _device_ms(torch, fn, iters=20):
+def _device_ms(torch, fn, iters=20, before=None, only=None):
     """Device time of one call, from a profiler trace of ``iters`` calls
     back to back (state not restored, so later calls meet their own
-    records)."""
+    records).  ``before`` runs ahead of each call (e.g. an L2 flush) and
+    ``only`` keeps the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
-    us = _device_us(prof)
+    us = _device_us(prof, only)
     return None if us is None else us / 1e3 / iters
 
 
@@ -539,6 +799,130 @@ def phase_times(np, torch, dev_cluster, card, device):
     return out
 
 
+def phase_table_times(np, torch, card, device, key_lanes):
+    """K1 and K6-K8 at phase 5's shapes.  Bounds count what this run's data
+    needs: each operand once without padding or valid flags, the three
+    planes of each probed set once, each table word the call changed, and
+    for a scan every (query, window entry) pair up to the query's first
+    hit, at 6 integer operations a pair."""
+    from repro_torch.kernels import WitnessTable, ops as kops, parity, ref
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(SEED + 6)
+
+    def on_card(*arrays):
+        return kops._to_device(dev, *arrays)
+
+    def timed(kernel, plain, restore, nbytes, nops):
+        t = dict(ms=_event_ms(torch, kernel, restore, 50),
+                 plain_ms=_event_ms(torch, plain, restore, 5),
+                 bytes=nbytes, ops=nops, bound=_bound_ms(nbytes, nops))
+        restore()
+        t["device_ms"] = _device_ms(torch, kernel)
+        return t
+
+    def changed_bytes(fn, table, restore):
+        restore()
+        before = [p.clone() for p in table]
+        fn()
+        torch.cuda.synchronize()
+        return 4 * sum(int((a != b).sum()) for a, b in zip(before, table))
+
+    def scan_pairs(q_hi, q_lo, q_cls, w_hi, w_lo, w_valid):
+        """Pairs a scan needs: up to each query's first conflicting entry,
+        the whole window for a query with none."""
+        mrow = ref.conflict_matrix_np()[q_cls]
+        wcls = np.maximum(w_valid - 1, 0)
+        hit = ((q_hi[:, None] == w_hi[None]) & (q_lo[:, None] == w_lo[None])
+               & (w_valid[None] > 0)
+               & (((mrow[:, None] >> wcls[None]) & 1) == 1))
+        first = np.where(hit.any(1), hit.argmax(1) + 1, w_hi.size)
+        return int(first.sum())
+
+    out = {}
+    # K1: keyhash2x32 over phase 2's keyspace, 16 B per key.  Back to back
+    # its 16 MB stay in the 50 MB L2; the cold time writes 128 MB between
+    # calls first.
+    n = N_KEYS
+    hi, lo = on_card(key_lanes[0], key_lanes[1])
+    out["keyhash"] = timed(lambda: kops.keyhash_cuda(hi, lo),
+                           lambda: ref.keyhash_plain(hi, lo), lambda: None,
+                           16 * n, 29 * n)
+    flush = torch.empty(32 << 20, dtype=torch.int32, device=dev)
+    out["keyhash"]["device_ms_cold"] = _device_ms(
+        torch, lambda: kops.keyhash_cuda(hi, lo), before=flush.zero_,
+        only="keyhash_kernel")
+    del flush
+
+    # K6: figure 11's record at the paper's geometry, 8192 random queries
+    # into an empty 1024 x 4 table.
+    table = WitnessTable.empty(TABLE_SETS, TABLE_WAYS, device=dev)
+
+    def clear():
+        for p in table:
+            p.zero_()
+
+    q_hi, q_lo = _random_lanes(np, rng, 2 * FIG11_SLOTS)
+    args = kops.table_record_operands(table, q_hi, q_lo)
+    B = q_hi.size
+    sets = np.unique(q_lo & np.uint32(TABLE_SETS - 1)).size
+    nbytes = (B * 16 + sets * TABLE_WAYS * 12
+              + changed_bytes(lambda: kops.witness_record_cuda(table, *args),
+                              table, clear))
+    out["witness_record"] = timed(
+        lambda: kops.witness_record_cuda(table, *args),
+        lambda: ref.witness_record_plain(table, *args), clear, nbytes,
+        B * TABLE_WAYS * 6)
+
+    # K7: one fused batch of 4096 ops against a 1024-entry window.
+    pool = parity.key_pool(rng, 4 * TABLE_SETS, TABLE_SETS)
+    planes = parity.table_planes(rng, pool, TABLE_SETS, TABLE_WAYS)
+    fp = parity.table_fastpath_batch(rng, pool, TABLE_BATCH, WINDOW,
+                                     TABLE_WAYS, N_SHARDS)
+    table0 = ref.witness_table_from_numpy(planes, dev)
+    table = table0.clone()
+
+    def restore():
+        for p, p0 in zip(table, table0):
+            p.copy_(p0)
+
+    fargs = kops.table_fastpath_operands(table0, **fp)
+    qh, ql = ref.np_keyhash2x32(fp["key_hi"], fp["key_lo"])
+    sets = np.unique(ql & np.uint32(TABLE_SETS - 1)).size
+    pairs = scan_pairs(qh, ql, fp["key_cls"], fp["window_hi"],
+                       fp["window_lo"], fp["window_valid"])
+    nbytes = (TABLE_BATCH * 12 + WINDOW * 12 + fp["slot_map"].size * 4
+              + TABLE_BATCH * 20 + sets * TABLE_WAYS * 12
+              + changed_bytes(
+                  lambda: kops.fastpath_record_scan_cuda(table, *fargs),
+                  table, restore))
+    out["fastpath_record_scan"] = timed(
+        lambda: kops.fastpath_record_scan_cuda(table, *fargs),
+        lambda: ref.fastpath_record_scan_plain(table, *fargs), restore,
+        nbytes, pairs * 6 + TABLE_BATCH * (29 + TABLE_WAYS * 6))
+
+    # K8: 4096 queries against a 1024-entry window.
+    sc = parity.scan_batch(rng, pool, TABLE_BATCH, WINDOW)
+    sargs = kops.scan_operands(dev, **sc)
+    pairs = scan_pairs(sc["q_hi"], sc["q_lo"], sc["q_cls"], sc["w_hi"],
+                       sc["w_lo"], sc["w_valid"])
+    out["conflict_scan"] = timed(
+        lambda: kops.conflict_scan_cuda(*sargs),
+        lambda: ref.conflict_scan_plain(*sargs), lambda: None,
+        TABLE_BATCH * 16 + WINDOW * 12, pairs * 6)
+    for name, t in out.items():
+        dms = ("not measured" if t["device_ms"] is None
+               else f"{t['device_ms']:.4f} ms")
+        if "device_ms_cold" in t:
+            dms += (", cold L2 not measured" if t["device_ms_cold"] is None
+                    else f", cold L2 {t['device_ms_cold']:.4f} ms")
+        say(card, f"time {name}: {t['ms']:.4f} ms per call (CUDA events), "
+                  f"device time {dms} (profiler), plain "
+                  f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.6f} ms "
+                  f"({t['bound'][1]}, {t['bytes']} B, {t['ops']} ops)")
+    return out
+
+
 def phase_idle(np, torch, dev_cluster, card):
     """One more fused batch of the stream's shape under the profiler: the
     device's busy time against the batch's wall time."""
@@ -629,9 +1013,15 @@ def main() -> int:
     for line in build.ptxas_reports():
         print(f"  {line}")
     sync = torch.cuda.synchronize
+    key_lanes = ycsb_key_lanes(np)
     par = phase_parity(np, parity, card, "cuda", sync)
+    par.update(phase_table_parity(np, parity, card, "cuda", sync, key_lanes))
     dev_cluster, launches, slice_info = phase_slice(np, card, "cuda", sync)
+    table_launches, table_info = phase_table_path(np, torch, card, "cuda",
+                                                  key_lanes)
+    launches.update(table_launches)
     times = phase_times(np, torch, dev_cluster, card, "cuda")
+    times.update(phase_table_times(np, torch, card, "cuda", key_lanes))
     idle = phase_idle(np, torch, dev_cluster, card)
     kernels = []
     for k in kops.KERNELS:
@@ -644,7 +1034,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, kernels=kernels, slice=slice_info, times=times, idle=idle,
+        card=card, kernels=kernels, slice=slice_info, table_path=table_info,
+        times=times, idle=idle,
         ptxas=build.ptxas_reports()), indent=1, default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -113,14 +113,10 @@ class WitnessGang:
     def __init__(self, n_sets: int = 1024, n_ways: int = 4,
                  n_lanes: int = 4, device="cuda") -> None:
         from ..kernels import N_REASON_CODES, GangTable
+        from ..kernels.ref import resolve_device
 
         assert n_lanes & (n_lanes - 1) == 0, "n_lanes must be a power of two"
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "the device witness gang needs a CUDA device and none is "
-                "available; pass device='cpu' to run the plain versions")
-        self.device = device
+        self.device = device = resolve_device(device)
         self.n_sets = n_sets
         self.n_ways = n_ways
         self.n_lanes = n_lanes

@@ -1,4 +1,4 @@
-// Shared device helpers of the gang kernels: the keyhash2x32 mix and the
+// Shared device helpers of the kernels: the keyhash2x32 mix and the
 // merge-lattice matrix consult.
 //
 // keyhash2x32 is the 64-bit-equivalent key hash carried as two uint32 lanes
@@ -6,8 +6,8 @@
 // bit with np_keyhash2x32 / keyhash2x32 in ../ref.py and with the host
 // SlotRouter (core/shard.py mix2x32), which is how device routing and host
 // placement stay identical.  The JAX package runs the same mix as the
-// keyhash2x32_pallas kernel (src/repro/kernels/keyhash.py); here it is
-// inlined into the kernels that need it.
+// keyhash2x32_pallas kernel (src/repro/kernels/keyhash.py); here K1
+// (keyhash.cu) runs it standalone and the other kernels inline it.
 #pragma once
 
 #include <cstdint>

@@ -1,10 +1,12 @@
-"""Public wrappers of the gang kernels: one dispatch per call.
+"""Public wrappers of the kernels: one dispatch per call.
 
-Counterpart of the gang ops in ``src/repro/kernels/ops.py``:
+Counterpart of ``src/repro/kernels/ops.py``.  The gang ops:
 ``gang_record`` (K2), ``gang_record_groups`` (K5), ``gang_gc`` (K4) and
-``gang_fastpath_batch`` (K3, with K2 as its record stage).  Signatures,
-result tuples and reason codes are the JAX package's, without its TPU-only
-options (``interpret``, ``tile_sets``).
+``gang_fastpath_batch`` (K3, with K2 as its record stage).  The single-table
+ops: ``keyhash2x32`` and ``shard_route`` (K1), ``witness_record`` (K6),
+``fastpath_batch`` (K7) and ``conflict_scan`` (K8).  Signatures, result
+tuples and reason codes are the JAX package's, without its TPU-only options
+(``interpret``, ``tile_sets``, ``block*``).
 
 Each op pads its host (numpy) inputs to a power-of-two bucket as the JAX
 version does (``_bucket``/``_pad_valid``), moves them to the table's device
@@ -12,6 +14,11 @@ in one copy, runs, and brings every host-side output back in one copy.  On
 CUDA tensors it launches the hand-written kernels of ``csrc/``; on CPU
 tensors it runs their plain versions in ``ref.py``; any other device
 raises.  There is no fallback from one to the other.
+
+Table ops take their device from the table; ``keyhash2x32``,
+``shard_route`` and ``conflict_scan`` from a torch tensor among their
+inputs, else from ``device`` (default ``"cuda"``, which raises without a
+card).
 
 The table planes, the rings and the ``[L, 5]`` counter plane are updated
 IN PLACE (the JAX version donated their buffers instead); the results hand
@@ -31,7 +38,7 @@ import torch
 
 from . import ref
 from .build import CudaKernel, I, P
-from .ref import GangTable, N_REASON_CODES
+from .ref import GangTable, N_REASON_CODES, WitnessTable
 
 # ---------------------------------------------------------------------------
 # Host-side dispatch accounting (on the port's own telemetry registry)
@@ -46,7 +53,7 @@ def _count_dispatch(n: int = 1) -> None:
 
 
 def dispatch_count() -> int:
-    """Public gang-op calls since the last reset (one per call, whatever
+    """Public op calls since the last reset (one per call, whatever
     the device)."""
     from ..core.telemetry import registry
 
@@ -83,7 +90,27 @@ GANG_GROUPS = CudaKernel(
     "src/repro/kernels/witness_record.py:846",
     {"gang_groups_launch": [I, I] + [P] * 9 + [I] * 3 + [P] * 11})
 
-KERNELS = (GANG_RECORD, GANG_FASTPATH, GANG_GC, GANG_GROUPS)
+_RUNS = [I] + [P] * 6 + [I] * 3 + [P] * 5
+KEYHASH = CudaKernel(
+    "keyhash", _CSRC + "keyhash.cu", "src/repro/kernels/keyhash.py:48",
+    {"keyhash_launch": [I, P, P, P, P, P, I, P, P]})
+WITNESS_RECORD = CudaKernel(
+    "witness_record", _CSRC + "witness_table.cu",
+    "src/repro/kernels/witness_record.py:258",
+    {"witness_sets": [I, P, P, I, P, P], "witness_record_runs": _RUNS})
+FASTPATH_RECORD_SCAN = CudaKernel(
+    "fastpath_record_scan", _CSRC + "witness_table.cu",
+    "src/repro/kernels/witness_record.py:307",
+    {"fastpath_prep": [I] + [P] * 5 + [I, P, I] + [P] * 3 + [I, I] + [P] * 6,
+     "witness_record_runs": _RUNS})
+CONFLICT_SCAN = CudaKernel(
+    "conflict_scan", _CSRC + "conflict_scan.cu",
+    "src/repro/kernels/conflict_scan.py:71",
+    {"conflict_scan_launch": [I, P, P, P, P, I, P, P, P, I, P, P]})
+
+GANG_KERNELS = (GANG_RECORD, GANG_FASTPATH, GANG_GC, GANG_GROUPS)
+TABLE_KERNELS = (KEYHASH, WITNESS_RECORD, FASTPATH_RECORD_SCAN, CONFLICT_SCAN)
+KERNELS = GANG_KERNELS + TABLE_KERNELS
 
 
 def launch_counts() -> Dict[str, int]:
@@ -248,6 +275,82 @@ def gang_fastpath_cuda(table: GangTable, n_sets: int, f: int,
     rsn = _record_runs(table, n_sets, rows_e, f, qh, ql, r_hi, r_lo, k_cls,
                        counters)
     return rsn, conflicts, shard, qh, ql, new_count
+
+
+def keyhash_cuda(hi, lo, slot_map=None):
+    """K1 on the card; see ``ref.keyhash_plain`` for the contract."""
+    dev = hi.device
+    _check_cuda(dev, hi, lo, slot_map)
+    qh = torch.empty_like(hi)
+    ql = torch.empty_like(hi)
+    shard = None if slot_map is None else torch.empty_like(hi)
+    n_slots = 0 if slot_map is None else slot_map.shape[0]
+    KEYHASH.call("keyhash_launch", hi.shape[0], _ptr(hi), _ptr(lo), _ptr(qh),
+                 _ptr(ql), _ptr(slot_map), n_slots, _ptr(shard), _stream(dev))
+    KEYHASH.launches += 1
+    return qh, ql, shard
+
+
+def _record_table(kernel: CudaKernel, table: WitnessTable, sets, q_hi, q_lo,
+                  q_cls) -> torch.Tensor:
+    """The record stage of K6 and K7: a stable sort by set, then one thread
+    per run of equal sets.  Returns accept bits in batch order."""
+    dev = sets.device
+    S, W = table.occ.shape
+    sets_sorted, perm = torch.sort(sets, stable=True)
+    accepted = torch.zeros_like(sets)
+    m = _matrix(dev)
+    kernel.call("witness_record_runs", sets.shape[0], _ptr(sets_sorted),
+                _ptr(perm), _ptr(q_hi), _ptr(q_lo), _ptr(q_cls), _ptr(m),
+                m.numel(), S, W, *(_ptr(p) for p in table), _ptr(accepted),
+                _stream(dev))
+    kernel.launches += 1
+    return accepted
+
+
+def witness_record_cuda(table: WitnessTable, q_hi, q_lo, q_cls, q_valid):
+    """K6 on the card; see ``ref.witness_record_plain`` for the contract."""
+    dev = q_hi.device
+    _check_cuda(dev, *table, q_hi, q_lo, q_cls, q_valid)
+    sets = torch.empty_like(q_hi)
+    WITNESS_RECORD.call("witness_sets", q_hi.shape[0], _ptr(q_lo),
+                        _ptr(q_valid), table.occ.shape[0], _ptr(sets),
+                        _stream(dev))
+    return _record_table(WITNESS_RECORD, table, sets, q_hi, q_lo, q_cls)
+
+
+def fastpath_record_scan_cuda(table: WitnessTable, k_hi, k_lo, k_cls,
+                              k_valid, slot_map, w_hi, w_lo, w_valid):
+    """K7 on the card; see ``ref.fastpath_record_scan_plain`` for the
+    contract."""
+    dev = k_hi.device
+    _check_cuda(dev, *table, k_hi, k_lo, k_cls, k_valid, slot_map, w_hi,
+                w_lo, w_valid)
+    qh, ql, shard, sets, conflicts = (torch.empty_like(k_hi)
+                                      for _ in range(5))
+    m = _matrix(dev)
+    FASTPATH_RECORD_SCAN.call(
+        "fastpath_prep", k_hi.shape[0], _ptr(k_hi), _ptr(k_lo), _ptr(k_cls),
+        _ptr(k_valid), _ptr(slot_map), slot_map.shape[0], _ptr(m), m.numel(),
+        _ptr(w_hi), _ptr(w_lo), _ptr(w_valid), w_hi.shape[0],
+        table.occ.shape[0], _ptr(qh), _ptr(ql), _ptr(shard), _ptr(sets),
+        _ptr(conflicts), _stream(dev))
+    accepted = _record_table(FASTPATH_RECORD_SCAN, table, sets, qh, ql, k_cls)
+    return accepted, conflicts, shard, qh, ql
+
+
+def conflict_scan_cuda(w_hi, w_lo, w_valid, q_hi, q_lo, q_cls):
+    """K8 on the card; see ``ref.conflict_scan_plain`` for the contract."""
+    dev = q_hi.device
+    _check_cuda(dev, w_hi, w_lo, w_valid, q_hi, q_lo, q_cls)
+    conflicts = torch.empty_like(q_hi)
+    m = _matrix(dev)
+    CONFLICT_SCAN.call("conflict_scan_launch", q_hi.shape[0], _ptr(q_hi),
+                       _ptr(q_lo), _ptr(q_cls), _ptr(m), m.numel(),
+                       _ptr(w_hi), _ptr(w_lo), _ptr(w_valid), w_hi.shape[0],
+                       _ptr(conflicts), _stream(dev))
+    CONFLICT_SCAN.launches += 1
+    return conflicts
 
 
 # ---------------------------------------------------------------------------
@@ -549,9 +652,238 @@ def gang_fastpath_batch(table: GangTable, n_sets: int, key_hi, key_lo,
     )
 
 
+# ---------------------------------------------------------------------------
+# Single-table ops: the fast-path pipeline on one witness table
+# ---------------------------------------------------------------------------
+# Keys hash to one of DEFAULT_N_SLOTS slots (mixed low lane mod n_slots) and
+# a slot -> shard table names the owner; it must match
+# repro_torch.core.shard.N_SLOTS (the host SlotRouter).
+DEFAULT_N_SLOTS = 256
+
+
+def default_slot_map(n_shards: int,
+                     n_slots: int = DEFAULT_N_SLOTS) -> np.ndarray:
+    """Round-robin slot -> shard table: slot i is owned by shard i % N."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    return (np.arange(n_slots, dtype=np.int32) % n_shards).astype(np.int32)
+
+
+def _np(x, dtype) -> np.ndarray:
+    """A host array of ``x`` (numpy, list or torch tensor) as ``dtype``;
+    uint32 lanes given as int32 bit patterns keep their bits."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x).astype(dtype, copy=False)
+
+
+def _op_device(device, *inputs) -> torch.device:
+    """The device of the first torch tensor among ``inputs``, else
+    ``device``; a CUDA device that is absent raises."""
+    for x in inputs:
+        if isinstance(x, torch.Tensor):
+            return ref.resolve_device(x.device)
+    return ref.resolve_device(device)
+
+
+def _slot_map(n_shards, slot_map, n_slots) -> np.ndarray:
+    if slot_map is None:
+        slot_map = default_slot_map(n_shards, n_slots)
+    slot_map = _np(slot_map, np.int32).reshape(-1)
+    if slot_map.size == 0:
+        raise ValueError("the slot map is empty")
+    return slot_map
+
+
+def _check_table(table: WitnessTable) -> None:
+    """What the table kernels index by: three [S, W] planes, S a power of
+    two."""
+    shapes = {tuple(p.shape) for p in table}
+    if len(shapes) != 1 or len(table.occ.shape) != 2:
+        raise ValueError(f"table planes must share one [S, W] shape, got "
+                         f"{sorted(shapes)}")
+    S = table.occ.shape[0]
+    if S & (S - 1):
+        raise ValueError(f"n_sets must be a power of two, got {S}")
+
+
+def _same_length(what: str, *arrays: np.ndarray) -> int:
+    """The common length of 1-D host arrays that a kernel reads side by
+    side (a shorter one would be read past its end)."""
+    shapes = {a.shape for a in arrays}
+    if len(shapes) != 1 or len(arrays[0].shape) != 1:
+        raise ValueError(f"{what} must be 1-D of one length, got "
+                         f"{sorted(shapes)}")
+    return arrays[0].shape[0]
+
+
+def keyhash2x32(hi, lo, *, device="cuda"):
+    """Batched 64-bit-equivalent key hash (K1): raw (hi, lo) lanes -> the
+    mixed (hi, lo) uint32 lanes, [N] numpy each, in caller order."""
+    dev = _op_device(device, hi, lo)
+    _count_dispatch()
+    hi, lo = _np(hi, np.uint32), _np(lo, np.uint32)
+    _same_length("hi and lo", hi, lo)
+    t_hi, t_lo = _to_device(dev, hi, lo)
+    fn = _pick(dev, keyhash_cuda, ref.keyhash_plain)
+    qh, ql = _to_host(*fn(t_hi, t_lo)[:2])
+    return qh.view(np.uint32), ql.view(np.uint32)
+
+
+def shard_route(hi, lo, n_shards: Optional[int] = None, *, slot_map=None,
+                n_slots: int = DEFAULT_N_SLOTS, device="cuda") -> np.ndarray:
+    """Batched key -> shard placement by slot-table gather (K1 with the
+    route): the keyhash2x32 mix, the mixed low lane mod ``n_slots`` picks a
+    slot, ``slot_map[slot]`` names the shard.  Agrees with
+    ``repro_torch.core.shard.SlotRouter`` on every map.  With only
+    ``n_shards`` the round-robin ``default_slot_map`` is used.  Returns [N]
+    int32 shard ids (numpy)."""
+    if slot_map is None and n_shards is None:
+        raise ValueError("shard_route needs n_shards or slot_map")
+    dev = _op_device(device, hi, lo, slot_map)
+    slot_map = _slot_map(n_shards, slot_map, n_slots)
+    _count_dispatch()
+    hi, lo = _np(hi, np.uint32), _np(lo, np.uint32)
+    _same_length("hi and lo", hi, lo)
+    t_hi, t_lo, t_map = _to_device(dev, hi, lo, slot_map)
+    fn = _pick(dev, keyhash_cuda, ref.keyhash_plain)
+    (shard,) = _to_host(fn(t_hi, t_lo, t_map)[2])
+    return shard
+
+
+def table_record_operands(table: WitnessTable, q_hi, q_lo, q_cls=None):
+    """Host inputs of ``witness_record`` -> the padded device operands of
+    ``witness_record_cuda`` / ``ref.witness_record_plain`` after the table:
+    q_hi, q_lo, q_cls, q_valid."""
+    _check_table(table)
+    q_hi, q_lo = _np(q_hi, np.uint32), _np(q_lo, np.uint32)
+    q_cls = (np.zeros(q_hi.shape, np.int32) if q_cls is None
+             else _np(q_cls, np.int32))
+    B = _same_length("q_hi, q_lo and q_cls", q_hi, q_lo, q_cls)
+    return _to_device(table.occ.device, *_pad_valid(B, q_hi, q_lo, q_cls))
+
+
+def witness_record(table: WitnessTable, q_hi, q_lo, q_cls=None):
+    """Batched record of MIXED keyhash lanes into one witness table (K6):
+    queries to one set resolve in batch order, sets in parallel.  The set
+    is ``q_lo & (S-1)`` of the lanes given (no hashing).  ``q_cls`` is the
+    optional per-query merge-lattice class (default SET).  Returns
+    (accepted [B] int32 numpy, table); the table is updated in place."""
+    _count_dispatch()
+    B = len(q_hi)
+    args = table_record_operands(table, q_hi, q_lo, q_cls)
+    fn = _pick(table.occ.device, witness_record_cuda, ref.witness_record_plain)
+    (acc,) = _to_host(fn(table, *args))
+    return acc[:B], table
+
+
+def scan_operands(device, w_hi, w_lo, w_valid, q_hi, q_lo, q_cls=None):
+    """Host inputs of ``conflict_scan`` -> the device operands of
+    ``conflict_scan_cuda`` / ``ref.conflict_scan_plain``: w_hi, w_lo,
+    w_valid, q_hi, q_lo, q_cls (no padding: the kernel masks its edges)."""
+    w_hi, w_lo = _np(w_hi, np.uint32), _np(w_lo, np.uint32)
+    w_valid = _np(w_valid, np.int32)
+    q_hi, q_lo = _np(q_hi, np.uint32), _np(q_lo, np.uint32)
+    q_cls = (np.zeros(q_hi.shape, np.int32) if q_cls is None
+             else _np(q_cls, np.int32))
+    _same_length("w_hi, w_lo and w_valid", w_hi, w_lo, w_valid)
+    _same_length("q_hi, q_lo and q_cls", q_hi, q_lo, q_cls)
+    return _to_device(device, w_hi, w_lo, w_valid, q_hi, q_lo, q_cls)
+
+
+def conflict_scan(w_hi, w_lo, w_valid, q_hi, q_lo, q_cls=None, *,
+                  device="cuda") -> np.ndarray:
+    """Commutativity check of B queries against a U-entry unsynced window
+    (K8).  ``w_valid`` packs each entry's merge-lattice class (0 invalid,
+    else 1 + class; legacy 0/1 callers get class SET); ``q_cls`` is the
+    optional per-query class.  Returns [B] int32 conflict bits (numpy)."""
+    dev = _op_device(device, w_hi, w_lo, w_valid, q_hi, q_lo, q_cls)
+    _count_dispatch()
+    args = scan_operands(dev, w_hi, w_lo, w_valid, q_hi, q_lo, q_cls)
+    fn = _pick(dev, conflict_scan_cuda, ref.conflict_scan_plain)
+    (con,) = _to_host(fn(*args))
+    return con
+
+
+class FastPathResult(NamedTuple):
+    """Result of one fused fast-path batch (all [B], caller order)."""
+    accepted: np.ndarray     # witness accept bit per op
+    conflicts: np.ndarray    # master-window conflict bit per op
+    shard_ids: np.ndarray    # slot-table placement (int32)
+    q_hi: np.ndarray         # mixed keyhash lanes: callers extend their
+    q_lo: np.ndarray         # unsynced window with these on accept
+    table: WitnessTable      # the witness table (updated in place)
+
+
+def table_fastpath_operands(table: WitnessTable, key_hi, key_lo,
+                            key_cls=None, window_hi=None, window_lo=None,
+                            window_valid=None, slot_map=None):
+    """Host inputs of ``fastpath_batch`` -> the padded device operands of
+    ``fastpath_record_scan_cuda`` / ``ref.fastpath_record_scan_plain`` after
+    the table: k_hi, k_lo, k_cls, k_valid, slot_map, w_hi, w_lo, w_valid.
+    The batch and the window are padded to power-of-two buckets; an empty
+    window becomes one invalid entry."""
+    _check_table(table)
+    if window_hi is None or len(window_hi) == 0:
+        if window_lo is not None and len(window_lo) > 0:
+            raise ValueError("window_lo given without window_hi")
+        w_hi = np.zeros((1,), np.uint32)
+        w_lo = np.zeros((1,), np.uint32)
+        w_val = np.zeros((1,), np.int32)
+    else:
+        if window_lo is None:
+            raise ValueError("window_hi given without window_lo")
+        w_hi = _np(window_hi, np.uint32)
+        w_lo = _np(window_lo, np.uint32)
+        w_val = (np.ones(w_hi.shape, np.int32) if window_valid is None
+                 else _np(window_valid, np.int32))
+    key_hi, key_lo = _np(key_hi, np.uint32), _np(key_lo, np.uint32)
+    key_cls = (np.zeros(key_hi.shape, np.int32) if key_cls is None
+               else _np(key_cls, np.int32))
+    B = _same_length("key_hi, key_lo and key_cls", key_hi, key_lo, key_cls)
+    U = _same_length("window_hi, window_lo and window_valid", w_hi, w_lo,
+                     w_val)
+    k_hi, k_lo, k_cls, k_valid = _pad_valid(B, key_hi, key_lo, key_cls)
+    w_hi, w_lo, w_val, _ = _pad_valid(U, w_hi, w_lo, w_val)
+    return _to_device(table.occ.device, k_hi, k_lo, k_cls, k_valid,
+                      _slot_map(1, slot_map, DEFAULT_N_SLOTS), w_hi, w_lo,
+                      w_val)
+
+
+def fastpath_batch(table: WitnessTable, key_hi, key_lo, key_cls=None, *,
+                   window_hi=None, window_lo=None, window_valid=None,
+                   n_shards: int = 1, slot_map=None,
+                   n_slots: int = DEFAULT_N_SLOTS) -> FastPathResult:
+    """One fused dispatch for a whole update batch (K7):
+
+        hash -> slot route -> witness record -> window conflict scan
+
+    ``key_hi``/``key_lo`` are the RAW 64-bit keyhash lanes; the op mixes
+    them, routes by ``slot_map`` (or the round-robin map of ``n_shards``),
+    records the mixed lanes in the table and scans them against the
+    master's unsynced window.  ``key_cls`` is the optional per-op class
+    (default SET); the window arguments are MIXED lanes with
+    ``window_valid`` packing 0 (invalid) or 1 + class (plain 0/1 means
+    SET); omit them for an empty window.  Outputs are numpy; the table is
+    updated in place."""
+    slot_map = _slot_map(n_shards, slot_map, n_slots)
+    _count_dispatch()
+    B = len(key_hi)
+    args = table_fastpath_operands(table, key_hi, key_lo, key_cls, window_hi,
+                                   window_lo, window_valid, slot_map)
+    fn = _pick(table.occ.device, fastpath_record_scan_cuda,
+               ref.fastpath_record_scan_plain)
+    acc, con, shard, qh, ql = _to_host(*fn(table, *args))
+    return FastPathResult(acc[:B], con[:B], shard[:B], qh.view(np.uint32)[:B],
+                          ql.view(np.uint32)[:B], table)
+
+
 __all__ = [
     "GangTable", "GangRecordResult", "GangFastPathResult", "N_REASON_CODES",
     "gang_record", "gang_record_groups", "gang_gc", "gang_fastpath_batch",
-    "dispatch_count", "reset_dispatch_count", "launch_counts",
-    "reset_launch_counts", "KERNELS", "CudaKernel",
+    "WitnessTable", "FastPathResult", "DEFAULT_N_SLOTS", "default_slot_map",
+    "keyhash2x32", "shard_route", "witness_record", "conflict_scan",
+    "fastpath_batch", "dispatch_count", "reset_dispatch_count",
+    "launch_counts", "reset_launch_counts", "KERNELS", "GANG_KERNELS",
+    "TABLE_KERNELS", "CudaKernel",
 ]

@@ -1,4 +1,4 @@
-"""Seeded inputs for the gang kernels, and the kernel-against-plain check.
+"""Seeded inputs for the kernels, and the kernel-against-plain checks.
 
 The generators build numpy state and batches that reach every branch of
 the kernels: a pre-filled table whose keys the batch hits again, idempotent
@@ -6,10 +6,14 @@ duplicates (a retried rpc), conflicts and mergeable-class stacking, rows
 flooded past their ways (FULL), multi-key groups with same-row keys, stale
 rpc gc entries, aged lanes, and ring spans that wrap past CAP.  An rpc's op
 class is a function of its identity (one rpc is one op), as in the protocol.
+For the single-table kernels: windows of mixed classes, invalid entries and
+keys the batch repeats, so that scans hit and miss under every class
+pairing.
 
 The same inputs serve the CPU tests (plain versions against the JAX
 package's oracles) and ``chip_smoke.py`` (each CUDA kernel against its
-plain version on the card, :func:`check_kernels`).
+plain version on the card, :func:`check_kernels` for the gang kernels and
+:func:`check_table_kernels` for the single-table ones).
 """
 from __future__ import annotations
 
@@ -24,11 +28,24 @@ from . import ops, ref
 # SET, INCR, SADD, OTHER: conflicting, mergeable and catch-all classes.
 CLASSES = np.array([0, 2, 5, 8], np.int32)
 
+# Coverage codes of the single-table kernels beyond the reason codes 1, 3
+# and 4 (insert, conflict, full) and ref.OUTCOME_STACKED (5): a query's key
+# meets a valid window entry and the classes conflict (a hit), or it meets
+# only valid entries whose classes the matrix lets commute (a miss).
+SCAN_HIT = 6
+SCAN_COMMUTES = 7
+N_CODES = 8
+
 # The outcomes (reason codes; gc: cleared bits) each kernel's inputs must
 # reach.  A fused batch carries fresh rpcs only, so its record stage never
 # meets a DUP; that stage is the gang_record kernel, whose own inputs do.
+# The single-table kernels return accept and conflict bits; their outcomes
+# are read from the plain version on the same inputs.
 BRANCHES = {"gang_record": (1, 2, 3, 4), "gang_record_groups": (1, 2, 3, 4),
-            "gang_gc": (0, 1), "gang_fastpath": (1, 3, 4)}
+            "gang_gc": (0, 1), "gang_fastpath": (1, 3, 4),
+            "keyhash": (), "witness_record": (1, 3, 4, 5),
+            "fastpath_record_scan": (1, 3, 4, 5, SCAN_HIT, SCAN_COMMUTES),
+            "conflict_scan": (SCAN_HIT, SCAN_COMMUTES)}
 
 
 def cls_of_rpc(rpc_lo) -> np.ndarray:
@@ -219,7 +236,8 @@ class Parity:
     max_abs_err: int            # largest |kernel - plain| over every output
     outputs: int                # number of integers compared
     coverage: np.ndarray        # the kernel's reason codes (gc: cleared
-    #                             bits) counted by value, 0..4
+    #                             bits; the single-table codes above)
+    #                             counted by value, 0..N_CODES-1
 
     @property
     def missed(self) -> List[int]:
@@ -303,16 +321,195 @@ def check_kernels(planes, n_sets: int, rec: dict, grp: dict, gc: dict,
     return out
 
 
-def _coverage(values: torch.Tensor) -> np.ndarray:
-    return reason_coverage(values.cpu().numpy())
+def _coverage(values: torch.Tensor, n: int = 5) -> np.ndarray:
+    return reason_coverage(values.cpu().numpy(), n)
 
 
-def reason_coverage(reasons: np.ndarray) -> np.ndarray:
-    """How often each reason code 0..4 occurs (tests assert the inputs
-    reach every branch)."""
-    return np.bincount(np.asarray(reasons).reshape(-1), minlength=5)
+def reason_coverage(reasons: np.ndarray, n: int = 5) -> np.ndarray:
+    """How often each code 0..n-1 occurs (tests assert the inputs reach
+    every branch); the single-table kernels count ``N_CODES`` codes."""
+    return np.bincount(np.asarray(reasons).reshape(-1), minlength=n)
 
 
-__all__ = ["BRANCHES", "CLASSES", "KeyPool", "Parity", "check_kernels", "cls_of_rpc",
-           "fastpath_batch", "gang_planes", "gc_batch", "group_batch",
-           "key_pool", "reason_coverage", "record_batch"]
+# ---------------------------------------------------------------------------
+# Single-table kernels: seeded inputs
+# ---------------------------------------------------------------------------
+def table_planes(rng: np.random.Generator, pool: KeyPool, n_sets: int,
+                 n_ways: int, fill: float = 0.5) -> Tuple[np.ndarray, ...]:
+    """A pre-filled single table (keys_hi, keys_lo uint32, occ int32):
+    about ``fill`` of the ways hold pool keys (mixed lanes, each key at
+    most once per set) under classes drawn from ``CLASSES``."""
+    khi = np.zeros((n_sets, n_ways), np.uint32)
+    klo = np.zeros((n_sets, n_ways), np.uint32)
+    occ = np.zeros((n_sets, n_ways), np.int32)
+    for k in rng.integers(0, len(pool.hi), int(fill * n_sets * n_ways)):
+        s = int(pool.q_lo[k] & np.uint32(n_sets - 1))
+        held = ((occ[s] > 0) & (khi[s] == pool.q_hi[k])
+                & (klo[s] == pool.q_lo[k]))
+        free = np.flatnonzero(occ[s] == 0)
+        if held.any() or not free.size:
+            continue
+        w = free[rng.integers(0, free.size)]
+        khi[s, w], klo[s, w] = pool.q_hi[k], pool.q_lo[k]
+        occ[s, w] = 1 + CLASSES[rng.integers(0, len(CLASSES))]
+    return khi, klo, occ
+
+
+def _pool_lanes(rng, pool: KeyPool, B: int, flood: int, mixed: bool):
+    """[B] keys: pool keys (repeats and table hits), 25% fresh keys, and a
+    flood of up to ``flood`` distinct keys of the pool's largest set in a
+    row (FULL).  Mixed lanes if ``mixed``, else the raw lanes the mix turns
+    into them."""
+    src_hi, src_lo = (pool.q_hi, pool.q_lo) if mixed else (pool.hi, pool.lo)
+    k = rng.integers(0, len(pool.hi), B)
+    hi, lo = src_hi[k].copy(), src_lo[k].copy()
+    fresh = rng.random(B) < 0.25
+    hi[fresh] = rng.integers(0, 2**32, fresh.sum(), dtype=np.uint64)
+    lo[fresh] = rng.integers(0, 2**32, fresh.sum(), dtype=np.uint64)
+    big = max(pool.by_set.values(), key=len)
+    n = min(flood, len(big), B)
+    at = rng.choice(B - n + 1)
+    hi[at:at + n] = src_hi[big[:n]]
+    lo[at:at + n] = src_lo[big[:n]]
+    return hi, lo
+
+
+def table_batch(rng: np.random.Generator, pool: KeyPool, B: int,
+                n_ways: int) -> Dict[str, np.ndarray]:
+    """[B] ``witness_record`` queries (MIXED lanes) with classes drawn from
+    ``CLASSES``; same-key repeats conflict or stack by the matrix, and a
+    flood of 2W + 1 keys fills one set."""
+    q_hi, q_lo = _pool_lanes(rng, pool, B, 2 * n_ways + 1, True)
+    return dict(q_hi=q_hi, q_lo=q_lo,
+                q_cls=CLASSES[rng.integers(0, len(CLASSES), B)])
+
+
+def window(rng: np.random.Generator, pool: KeyPool, U: int):
+    """A U-entry unsynced window of MIXED lanes of the first half of the
+    pool (which batches repeat; distinct keys while the half lasts, so a
+    same-key query meets one class), with ``w_valid`` 1 + class over
+    ``CLASSES`` and 10% invalid entries."""
+    half = len(pool.hi) // 2
+    k = rng.choice(half, U, replace=U > half)
+    valid = 1 + CLASSES[rng.integers(0, len(CLASSES), U)]
+    valid[rng.random(U) < 0.1] = 0
+    return pool.q_hi[k], pool.q_lo[k], valid.astype(np.int32)
+
+
+def table_fastpath_batch(rng: np.random.Generator, pool: KeyPool, B: int,
+                         U: int, n_ways: int, n_shards: int,
+                         n_slots: int = 256) -> Dict[str, np.ndarray]:
+    """[B] ``fastpath_batch`` ops (RAW lanes, classes over ``CLASSES``),
+    half of them keys of the window's half of the pool, a U-entry window
+    and a random slot map over ``n_shards``."""
+    key_hi, key_lo = _pool_lanes(rng, pool, B, 2 * n_ways + 1, False)
+    hot = rng.random(B) < 0.5
+    k = rng.integers(0, len(pool.hi) // 2, int(hot.sum()))
+    key_hi[hot], key_lo[hot] = pool.hi[k], pool.lo[k]
+    w_hi, w_lo, w_valid = window(rng, pool, U)
+    return dict(key_hi=key_hi, key_lo=key_lo,
+                key_cls=CLASSES[rng.integers(0, len(CLASSES), B)],
+                window_hi=w_hi, window_lo=w_lo, window_valid=w_valid,
+                slot_map=rng.integers(0, n_shards, n_slots).astype(np.int32))
+
+
+def scan_batch(rng: np.random.Generator, pool: KeyPool, B: int,
+               U: int) -> Dict[str, np.ndarray]:
+    """``conflict_scan`` inputs: a U-entry window and [B] MIXED queries,
+    most of them keys of the window's half of the pool."""
+    w_hi, w_lo, w_valid = window(rng, pool, U)
+    k = rng.integers(0, len(pool.hi) * 2 // 3, B)
+    return dict(w_hi=w_hi, w_lo=w_lo, w_valid=w_valid, q_hi=pool.q_hi[k],
+                q_lo=pool.q_lo[k],
+                q_cls=CLASSES[rng.integers(0, len(CLASSES), B)])
+
+
+# ---------------------------------------------------------------------------
+# Single-table kernels against their plain versions
+# ---------------------------------------------------------------------------
+def scan_codes(con, w_hi, w_lo, w_valid, q_hi, q_lo) -> torch.Tensor:
+    """Per query: ``SCAN_HIT`` on a conflict, ``SCAN_COMMUTES`` when the
+    key meets valid window entries whose classes all commute with it, 0
+    when it meets none."""
+    meets = ((q_hi[:, None] == w_hi[None, :])
+             & (q_lo[:, None] == w_lo[None, :])
+             & (w_valid[None, :] > 0)).any(1)
+    return torch.where(con == 1, SCAN_HIT,
+                       torch.where(meets, SCAN_COMMUTES, 0))
+
+
+def _merge(name: str, parts) -> Parity:
+    """One :class:`Parity` over several cases of one kernel."""
+    return Parity(name, max(p[0] for p in parts), sum(p[1] for p in parts),
+                  sum(p[2] for p in parts))
+
+
+def check_table_kernels(keys: dict, records, fastpaths, scans,
+                        device="cuda") -> List[Parity]:
+    """Run each single-table CUDA kernel and its plain version on the same
+    device tensors (tables on identical copies) and compare every output
+    and all three table planes.  ``keys`` holds raw ``hi``/``lo`` lanes and
+    a ``slot_map`` (K1 runs with and without the route); ``records`` and
+    ``fastpaths`` are lists of (table planes, batch) cases of
+    ``witness_record`` (K6) and ``fastpath_batch`` (K7), ``scans`` a list
+    of ``conflict_scan`` (K8) cases.  Returns one :class:`Parity` per
+    kernel, over all its cases."""
+    device = torch.device(device)
+    hi, lo, sm = ops._to_device(device, keys["hi"], keys["lo"],
+                                keys["slot_map"])
+    pairs = []
+    for slot_map in (None, sm):
+        ra = ops.keyhash_cuda(hi, lo, slot_map)
+        rb = ref.keyhash_plain(hi, lo, slot_map)
+        pairs += [(a, b) for a, b in zip(ra, rb) if a is not None]
+    out = [Parity("keyhash", *_diff(pairs),
+                  reason_coverage(np.zeros(0, int), N_CODES))]
+
+    parts = []
+    for planes, q in records:
+        base = ref.witness_table_from_numpy(planes, device)
+        args = ops.table_record_operands(base, **q)
+        ta, tb, tc = base.clone(), base.clone(), base.clone()
+        ra = ops.witness_record_cuda(ta, *args)
+        rb = ref.witness_record_plain(tb, *args)
+        outcome = ref.witness_outcomes_plain(tc, *args)
+        parts.append((*_diff([(ra, rb)] + list(zip(ta, tb))),
+                      _coverage(outcome[args[3] == 1], N_CODES)))
+    out.append(_merge("witness_record", parts))
+
+    parts = []
+    for planes, fp in fastpaths:
+        base = ref.witness_table_from_numpy(planes, device)
+        args = ops.table_fastpath_operands(base, **fp)
+        k_cls, k_valid, w_hi, w_lo, w_valid = (args[2], args[3], *args[5:])
+        ta, tb, tc = base.clone(), base.clone(), base.clone()
+        ra = ops.fastpath_record_scan_cuda(ta, *args)
+        rb = ref.fastpath_record_scan_plain(tb, *args)
+        qh, ql = rb[3], rb[4]
+        outcome = ref.witness_outcomes_plain(tc, qh, ql, k_cls, k_valid)
+        codes = scan_codes(rb[1], w_hi, w_lo, w_valid, qh, ql)
+        ok = k_valid == 1
+        parts.append((*_diff(list(zip(ra, rb)) + list(zip(ta, tb))),
+                      _coverage(outcome[ok], N_CODES)
+                      + _coverage(codes[ok], N_CODES)))
+    out.append(_merge("fastpath_record_scan", parts))
+
+    parts = []
+    for sc in scans:
+        args = ops.scan_operands(device, **sc)
+        ra = ops.conflict_scan_cuda(*args)
+        rb = ref.conflict_scan_plain(*args)
+        w_hi, w_lo, w_valid, q_hi, q_lo, _ = args
+        parts.append((*_diff([(ra, rb)]),
+                      _coverage(scan_codes(rb, w_hi, w_lo, w_valid, q_hi,
+                                           q_lo), N_CODES)))
+    out.append(_merge("conflict_scan", parts))
+    return out
+
+
+__all__ = ["BRANCHES", "CLASSES", "KeyPool", "N_CODES", "Parity",
+           "SCAN_COMMUTES", "SCAN_HIT", "check_kernels", "check_table_kernels",
+           "cls_of_rpc", "fastpath_batch", "gang_planes", "gc_batch",
+           "group_batch", "key_pool", "reason_coverage", "record_batch",
+           "scan_batch", "scan_codes", "table_batch", "table_fastpath_batch",
+           "table_planes", "window"]

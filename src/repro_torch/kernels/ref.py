@@ -1,9 +1,12 @@
-"""Plain PyTorch versions of the gang kernels, and the state they share.
+"""Plain PyTorch versions of the kernels, and the state they share.
 
 Each CUDA kernel in ``csrc/`` has its plain version here, with the same
 signature as its launcher in ``ops.py``: the wrapper takes it for tensors
 that lie on the CPU, and ``chip_smoke.py`` holds every kernel against it on
-the card.  Nothing on the main path calls these for CUDA tensors.
+the card.  Nothing on the main path calls these for CUDA tensors.  Two
+families: the gang kernels (K2-K5, many witness tables stacked with rpc and
+age planes) and the single-table kernels (K1, K6-K8: one ``[S, W]`` table
+with key and class planes only, and the window scan).
 
 Lane arithmetic.  The uint32 planes are stored as ``torch.int32`` holding
 the same bits (``np.ndarray.view(np.int32)`` in, ``.view(np.uint32)`` out);
@@ -35,8 +38,24 @@ REASON_DUP = 2
 REASON_CONFLICT = 3
 REASON_FULL = 4
 N_REASON_CODES = 5   # counter columns; column 0 is unused
+# Single-table outcome, seen only by the plain version (the kernels return
+# accept bits): accepted into a free way beside a same-key record whose
+# class does not conflict (e.g. INCR over INCR).
+OUTCOME_STACKED = 5
 
 PLANES = ("keys_hi", "keys_lo", "occ", "rpc_hi", "rpc_lo", "age")
+TABLE_PLANES = ("keys_hi", "keys_lo", "occ")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch device; a CUDA device must exist (there is no
+    fallback to the CPU: the caller asks for it by name)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port's kernels need a CUDA device and none is available; "
+            "pass device='cpu' to run the plain versions")
+    return device
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +220,26 @@ def reason_counts_update(counters: torch.Tensor, lanes: torch.Tensor,
 # ---------------------------------------------------------------------------
 # K2: set-parallel single-key gang record (plain version)
 # ---------------------------------------------------------------------------
+def _rounds(rows: torch.Tensor, valid: torch.Tensor):
+    """The valid queries in rounds for an ordered walk of each row: round r
+    holds the r-th query of every row (batch order within a row).  Yields
+    (q, rw) per round: batch positions and their rows, one query per row."""
+    idx = torch.nonzero(valid.to(torch.bool)).flatten()
+    if idx.numel() == 0:
+        return
+    r_sorted, order = torch.sort(rows[idx].to(torch.int64), stable=True)
+    orig = idx[order]
+    pos = torch.arange(r_sorted.shape[0], device=rows.device)
+    start = torch.ones_like(r_sorted, dtype=torch.bool)
+    start[1:] = r_sorted[1:] != r_sorted[:-1]
+    run_start = torch.cummax(torch.where(start, pos, torch.zeros_like(pos)),
+                             dim=0).values
+    rank = pos - run_start
+    for r in range(int(rank.max()) + 1):
+        at = rank == r
+        yield orig[at], r_sorted[at]
+
+
 def record_rows_plain(table: GangTable, rows: torch.Tensor,
                       qh: torch.Tensor, ql: torch.Tensor,
                       rh: torch.Tensor, rl: torch.Tensor, cls: torch.Tensor,
@@ -218,24 +257,9 @@ def record_rows_plain(table: GangTable, rows: torch.Tensor,
     N = rows.shape[0]
     W = table.occ.shape[1]
     reasons = torch.zeros(N, dtype=torch.int32, device=dev)
-    idx = torch.nonzero(valid.to(torch.bool)).flatten()
-    if idx.numel() == 0:
-        return reasons
-    r_valid = rows[idx].to(torch.int64)
-    r_sorted, order = torch.sort(r_valid, stable=True)
-    orig = idx[order]
-    pos = torch.arange(r_sorted.shape[0], device=dev)
-    start = torch.ones_like(r_sorted, dtype=torch.bool)
-    start[1:] = r_sorted[1:] != r_sorted[:-1]
-    run_start = torch.cummax(torch.where(start, pos, torch.zeros_like(pos)),
-                             dim=0).values
-    rank = pos - run_start
     mrow_all = matrix_rows(cls)
     way_iota = torch.arange(W, device=dev)
-    for r in range(int(rank.max()) + 1):
-        at = rank == r
-        q = orig[at]
-        rw = r_sorted[at]
+    for q, rw in _rounds(rows, valid):
         row_hi, row_lo = table.keys_hi[rw], table.keys_lo[rw]
         row_occ, row_rh = table.occ[rw], table.rpc_hi[rw]
         row_rl, row_age = table.rpc_lo[rw], table.age[rw]
@@ -451,3 +475,134 @@ def gang_fastpath_plain(table: GangTable, n_sets: int, f: int,
     if counters is not None:
         reason_counts_update(counters, lanes_e, rsn, valid_e)
     return rsn, conflicts, shard.to(torch.int32), qh, ql, new_count
+
+
+# ---------------------------------------------------------------------------
+# Single-table family: one [S, W] witness table, the window scan, the hash
+# ---------------------------------------------------------------------------
+class WitnessTable(NamedTuple):
+    """One witness table of S sets x W ways as three ``[S, W]`` int32
+    planes: ``keys_hi``/``keys_lo`` hold the mixed keyhash lanes' uint32
+    bits, ``occ`` is 0 (empty) or 1 + op class.  The kernels update the
+    planes in place."""
+    keys_hi: torch.Tensor
+    keys_lo: torch.Tensor
+    occ: torch.Tensor
+
+    @staticmethod
+    def empty(n_sets: int, n_ways: int, device="cuda") -> "WitnessTable":
+        assert n_sets & (n_sets - 1) == 0, "n_sets must be a power of two"
+        device = resolve_device(device)
+        return WitnessTable(*(torch.zeros((n_sets, n_ways), dtype=torch.int32,
+                                          device=device)
+                              for _ in TABLE_PLANES))
+
+    def clone(self) -> "WitnessTable":
+        return WitnessTable(*(p.clone() for p in self))
+
+
+def witness_table_from_numpy(planes: Sequence[np.ndarray],
+                             device="cuda") -> WitnessTable:
+    """The JAX package's ``WitnessTable`` state (``keys_hi``, ``keys_lo``
+    uint32 and ``occ`` int32, as numpy) as the port's tensors."""
+    device = resolve_device(device)
+    return WitnessTable(*(
+        torch.from_numpy(np.ascontiguousarray(np.asarray(a)).view(np.int32)
+                         .copy()).to(device)
+        for a in planes))
+
+
+def witness_table_to_numpy(table: WitnessTable) -> Tuple[np.ndarray, ...]:
+    """The port's table as three numpy planes with the JAX dtypes."""
+    hi, lo, occ = (p.detach().cpu().numpy() for p in table)
+    return hi.view(np.uint32), lo.view(np.uint32), occ
+
+
+def keyhash_plain(hi: torch.Tensor, lo: torch.Tensor, slot_map=None):
+    """Plain version of the ``keyhash`` kernel (K1): the mixed lanes and,
+    with a slot map, the shard of each key (``slot_map[lo % n_slots]``,
+    unsigned).  Returns (q_hi, q_lo, shard or None)."""
+    qh, ql = keyhash2x32(hi, lo)
+    if slot_map is None:
+        return qh, ql, None
+    return qh, ql, slot_map[u32(ql) % slot_map.shape[0]]
+
+
+def witness_sets(q_lo: torch.Tensor, q_valid: torch.Tensor,
+                 n_sets: int) -> torch.Tensor:
+    """Probed set ``q_lo & (S-1)`` per query (S a power of two: the mask
+    reads the low bits of the int32 pattern unchanged); padding gets S."""
+    sets = q_lo.to(torch.int64) & (n_sets - 1)
+    return torch.where(q_valid == 1, sets, torch.full_like(sets, n_sets))
+
+
+def witness_outcomes_plain(table: WitnessTable, q_hi, q_lo, q_cls,
+                           q_valid) -> torch.Tensor:
+    """Record MIXED query lanes into one table, queries to one set in batch
+    order, sets independent (``ref_witness_record`` of the JAX package).
+    Per query: CONFLICT (3) if a way holds the same key and the matrix bit
+    ``(mrow >> (occ-1)) & 1`` is set; else insert at the first free way
+    with ``occ = 1 + class``: INSERT (1), or ``OUTCOME_STACKED`` (5) when a
+    same-key record of a non-conflicting class is held; else FULL (4).
+    There is no rpc, no DUP and no age.  Returns [B] outcomes (0 for
+    padding); the table is updated in place."""
+    S, W = table.occ.shape
+    dev = q_hi.device
+    outcome = torch.zeros(q_hi.shape[0], dtype=torch.int32, device=dev)
+    mrow_all = matrix_rows(q_cls)
+    way_iota = torch.arange(W, device=dev)
+    for q, rw in _rounds(witness_sets(q_lo, q_valid, S), q_valid):
+        row_hi, row_lo = table.keys_hi[rw], table.keys_lo[rw]
+        row_occ = table.occ[rw]
+        keym = ((row_occ > 0) & (row_hi == q_hi[q, None])
+                & (row_lo == q_lo[q, None]))
+        conf = (keym & matrix_bit(mrow_all[q, None],
+                                  torch.clamp(row_occ - 1, min=0))).any(1)
+        free = row_occ == 0
+        has_free = free.any(1)
+        acc = ~conf & has_free
+        outcome[q] = torch.where(conf, REASON_CONFLICT, torch.where(
+            ~has_free, REASON_FULL, torch.where(
+                keym.any(1), OUTCOME_STACKED, REASON_INSERT))).to(torch.int32)
+        sel = ((way_iota[None, :] == free.to(torch.int8).argmax(1)[:, None])
+               & acc[:, None])
+        table.keys_hi[rw] = torch.where(sel, q_hi[q, None], row_hi)
+        table.keys_lo[rw] = torch.where(sel, q_lo[q, None], row_lo)
+        table.occ[rw] = torch.where(sel, 1 + q_cls[q, None], row_occ)
+    return outcome
+
+
+def witness_record_plain(table: WitnessTable, q_hi, q_lo, q_cls,
+                         q_valid) -> torch.Tensor:
+    """Plain version of the ``witness_record`` kernel (K6): the accept bit
+    of :func:`witness_outcomes_plain` ([B] int32, 0 for padding)."""
+    out = witness_outcomes_plain(table, q_hi, q_lo, q_cls, q_valid)
+    return ((out == REASON_INSERT) | (out == OUTCOME_STACKED)).to(torch.int32)
+
+
+def conflict_scan_plain(w_hi, w_lo, w_valid, q_hi, q_lo,
+                        q_cls) -> torch.Tensor:
+    """Plain version of the ``conflict_scan`` kernel (K8):
+    ``conflicts[b] = OR_u (same key & w_valid[u] > 0 & matrix bit)``, where
+    ``w_valid`` packs 0 (invalid) or 1 + class (legacy 0/1 means SET).
+    Returns [B] int32."""
+    wv = w_valid.to(torch.int64)
+    mrow = matrix_rows(q_cls)
+    eq = ((q_hi[:, None] == w_hi[None, :]) & (q_lo[:, None] == w_lo[None, :])
+          & (wv[None, :] > 0)
+          & matrix_bit(mrow[:, None], torch.clamp(wv - 1, min=0)[None, :]))
+    return eq.any(1).to(torch.int32)
+
+
+def fastpath_record_scan_plain(table: WitnessTable, k_hi, k_lo, k_cls,
+                               k_valid, slot_map, w_hi, w_lo, w_valid):
+    """Plain version of the ``fastpath_record_scan`` kernels (K7): hash the
+    raw key lanes, route (``slot_map[lo % n_slots]``), record the mixed
+    lanes (K6) and scan them against the window (K8) -- the window only,
+    with no in-batch check and no append.  Returns (accepted, conflicts,
+    shard, q_hi, q_lo), each [B] int32; padding neither accepts nor hits."""
+    qh, ql, shard = keyhash_plain(k_hi, k_lo, slot_map)
+    acc = witness_record_plain(table, qh, ql, k_cls, k_valid)
+    con = conflict_scan_plain(w_hi, w_lo, w_valid, qh, ql, k_cls)
+    con = torch.where(k_valid == 1, con, torch.zeros_like(con))
+    return acc, con, shard, qh, ql

@@ -51,6 +51,55 @@ def test_kernel_matches_plain_version(cuda, case, kernel):
     assert not got.missed, got.coverage
 
 
+@pytest.fixture(params=[0, 1])
+def table_case(request):
+    """Single-table inputs at 64x4, 16x2 and 128x8, with K8 at a batch and
+    window that are not tile multiples."""
+    rng = np.random.default_rng(request.param)
+    records, fastpaths = [], []
+    for S, W in ((64, 4), (16, 2), (128, 8)):
+        pool = parity.key_pool(rng, 4 * S, S)
+        planes = parity.table_planes(rng, pool, S, W)
+        records.append((planes, parity.table_batch(rng, pool, 512, W)))
+        fastpaths.append((planes, parity.table_fastpath_batch(
+            rng, pool, 300, 100, W, 4)))
+    scans = [parity.scan_batch(rng, pool, 1000, 777),
+             parity.scan_batch(rng, pool, 33, 1)]
+    keys = dict(hi=pool.hi, lo=pool.lo,
+                slot_map=rng.integers(0, 7, 256).astype(np.int32))
+    return keys, records, fastpaths, scans
+
+
+@pytest.mark.parametrize("kernel", ["keyhash", "witness_record",
+                                    "fastpath_record_scan", "conflict_scan"])
+def test_table_kernel_matches_plain_version(cuda, table_case, kernel):
+    results = parity.check_table_kernels(*table_case, device=cuda)
+    torch.cuda.synchronize()
+    got = {r.name: r for r in results}[kernel]
+    assert got.outputs > 0
+    assert got.max_abs_err == 0
+    assert not got.missed, got.coverage
+
+
+def test_single_table_ops_on_the_card_match_the_cpu(cuda):
+    from repro_torch.kernels import WitnessTable, fastpath_batch
+
+    rng = np.random.default_rng(9)
+    pool = parity.key_pool(rng, 1024, 256)
+    fp = parity.table_fastpath_batch(rng, pool, 1000, 64, 4, 8)
+    out = []
+    for device in (cuda, "cpu"):
+        res = fastpath_batch(WitnessTable.empty(256, 4, device=device),
+                             fp["key_hi"], fp["key_lo"], fp["key_cls"],
+                             window_hi=fp["window_hi"],
+                             window_lo=fp["window_lo"],
+                             window_valid=fp["window_valid"],
+                             slot_map=fp["slot_map"])
+        out.append(res)
+    for a, b in zip(out[0][:5], out[1][:5]):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_cluster_on_the_card_matches_the_cpu(cuda):
     from repro_torch.core import ShardedCluster, WitnessGeometry
 

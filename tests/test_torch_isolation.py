@@ -58,10 +58,52 @@ def _device_backends():
 def test_device_backend_runs_on_the_card_by_default(name):
     build = _device_backends()[name]
     if torch.cuda.is_available():
-        assert build().gang.device.type == "cuda"
+        c = build()
+        gang = c.group.gang if name == "LocalCluster" else c.gang
+        assert gang.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA device"):
             build()
+
+
+def _single_table_entries():
+    from repro_torch.kernels import (
+        WitnessTable,
+        conflict_scan,
+        keyhash2x32,
+        shard_route,
+        witness_table_from_numpy,
+    )
+
+    lanes = np.array([1, 0xF0000001], np.uint32)
+    planes = [np.zeros((16, 2), np.uint32)] * 2 + [np.zeros((16, 2), np.int32)]
+    return {
+        "WitnessTable.empty": lambda: WitnessTable.empty(16, 2),
+        "witness_table_from_numpy": lambda: witness_table_from_numpy(planes),
+        "keyhash2x32": lambda: keyhash2x32(lanes, lanes),
+        "shard_route": lambda: shard_route(lanes, lanes, 4),
+        "conflict_scan": lambda: conflict_scan(lanes, lanes, [1, 1], lanes,
+                                               lanes),
+    }
+
+
+@pytest.mark.parametrize("name", ["WitnessTable.empty",
+                                  "witness_table_from_numpy", "keyhash2x32",
+                                  "shard_route", "conflict_scan"])
+def test_single_table_entry_runs_on_the_card_by_default(name):
+    from repro_torch.kernels import WitnessTable, ops
+
+    call = _single_table_entries()[name]
+    if torch.cuda.is_available():
+        before = sum(k.launches for k in ops.TABLE_KERNELS)
+        out = call()
+        if isinstance(out, WitnessTable):
+            assert out.occ.device.type == "cuda"
+        else:
+            assert sum(k.launches for k in ops.TABLE_KERNELS) == before + 1
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
 
 
 def test_python_backend_needs_no_device():
@@ -91,6 +133,34 @@ def test_cuda_launcher_refuses_cpu_tensors():
         ops.gang_record_cuda(table, 16, *operands)
 
 
+def test_table_ops_refuse_devices_they_have_no_kernel_for():
+    from repro_torch.kernels import WitnessTable, conflict_scan, witness_record
+
+    table = WitnessTable(*(torch.zeros((16, 2), dtype=torch.int32,
+                                       device="meta") for _ in range(3)))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        witness_record(table, [1], [2])
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        conflict_scan([1], [2], [1], [1], [2], device="meta")
+
+
+def test_table_cuda_launchers_refuse_cpu_tensors():
+    from repro_torch.kernels import WitnessTable, ops
+
+    table = WitnessTable.empty(16, 2, device="cpu")
+    args = ops.table_record_operands(table, [1], [2])
+    with pytest.raises(ValueError, match="CUDA launcher"):
+        ops.witness_record_cuda(table, *args)
+    with pytest.raises(ValueError, match="CUDA launcher"):
+        ops.keyhash_cuda(*args[:2])
+    with pytest.raises(ValueError, match="CUDA launcher"):
+        ops.fastpath_record_scan_cuda(
+            table, *ops.table_fastpath_operands(table, [1], [2]))
+    with pytest.raises(ValueError, match="CUDA launcher"):
+        ops.conflict_scan_cuda(*ops.scan_operands("cpu", [1], [2], [1], [1],
+                                                  [2]))
+
+
 def test_kernel_sources_compile_into_a_hashed_ignored_directory():
     from repro_torch.kernels import build
 
@@ -101,4 +171,5 @@ def test_kernel_sources_compile_into_a_hashed_ignored_directory():
                              cwd=ROOT, timeout=60)
     assert ignored.returncode == 0
     assert {p.name for p in build.CSRC.glob("*.cu")} == {
-        "gang_record.cu", "gang_fastpath.cu", "gang_gc.cu", "gang_groups.cu"}
+        "gang_record.cu", "gang_fastpath.cu", "gang_gc.cu", "gang_groups.cu",
+        "keyhash.cu", "witness_table.cu", "conflict_scan.cu"}

@@ -22,12 +22,12 @@ from repro_torch.kernels import (
     gang_record,
     gang_record_groups,
     gang_to_numpy,
-    keyhash2x32,
     np_keyhash2x32,
     ring_from_numpy,
     ring_to_numpy,
 )
 from repro_torch.kernels import parity
+from repro_torch.kernels.ref import keyhash2x32
 
 L, S, W = 4, 64, 4
 N_RPCS = 24
