@@ -34,7 +34,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    collision-heavy parity cases (B = 512) and on a pre-filled 1024 x 4
    table with classes; fastpath_record_scan (K7) at 1024 x 4 and 1024 x 8,
    B = 4096, against a 1024-entry window of mixed classes; conflict_scan
-   (K8) at B = 4096, U = 1024 and at B = 1000, U = 777.
+   (K8) at B = 4096, U = 1024 and at B = 1000, U = 777.  And the three
+   transaction and baseline kernels, outputs and all three planes bit for
+   bit: txn_probe (K9) as a chain of 2000 probes of 1..16 keys over a
+   1024 x 4 table about 90% full (conflicts, FULL rejects that leave the
+   table untouched, own-rpc retries, same-set inserters, duplicate keys,
+   padding), kernel and plain chains in lockstep; witness_gc (K10) at
+   1024 x 4 and 4096 x 1 with G in {0, 50, 64, 1024}; witness_record_seq
+   (K11) at 1024 x 4 with B in {64, 512, 4096}, on an empty table and on
+   one K6 filled with mixed classes.
 3. Durability: the masters of 4 shards crash half-way through phase 2; at
    the end every acknowledged key is read back and compared with a model of
    the acknowledged writes.
@@ -50,6 +58,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    (12 trials) are more than 2.5x higher at 4 ways than direct-mapped; and
    shard_route places keys as the host SlotRouter does, on the default
    and on a random slot map.
+6. Transactions on the device backend, at phase 2's cluster (run after
+   phase 5; launches counted from 0 over this phase alone), reproducing
+   benchmarks/fig_txn.py's claims 1-3 on the card: the six crash runs of
+   ``repro_torch.sim.run_txn_crash_scenario`` (every 2PC stage, with and
+   without a participant crash, 64 transactions each) atomic and equal to
+   the Python backend; fig_txn's single- and cross-shard streams (1000
+   transactions each) with statuses and reads equal to the Python
+   backend, paths equal in every shard until its first witness FULL
+   reject, single-shard transactions on the 1-RTT path (fast share at
+   least 0.95, mean rounds at most 1.05, on the Python backend and on the
+   device backend's shards with no FULL reject yet) and cross-shard ones
+   at 2 rounds or more; the grouped probe at 1 dispatch on accept and
+   reject against 2 for record-then-rollback; DeviceWitness against the
+   Python Witness on collision-heavy multi-key ops, and txn_probe on the
+   card against its plain version over an evolving 64 x 4 table; the
+   sequential record (K11) against the set-parallel one (K6) at 1024 x 4
+   (equal accept bits, both timed); and record -> gc -> record at full
+   size.
 4. Times at phase 2's shapes: each kernel and its plain version (CUDA
    events, state restored between calls; gang_record as the record stage
    the fused batch launches, so gang_fastpath's time includes it), each
@@ -57,7 +83,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    take for the same work (the bytes and operations this run's data needs),
    the fused batches' wall time, the device's idle share during one more
    fused batch, and the host's self time by source file in another.  K1
-   and K6-K8 are timed the same way at phase 5's shapes.
+   and K6-K8 are timed the same way at phase 5's shapes, K9-K11 at phase
+   6's.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``;
 the line before them names the card and its power limit.  Details also go
@@ -87,6 +114,13 @@ FIG11_SLOTS, FIG11_WAYS, FIG11_TRIALS = 4096, (1, 2, 4, 8), 12
 SWEEP_GEOMETRIES = ((256, 4), (1024, 4), (1024, 8))
 SWEEP_BATCHES, SWEEP_REPS = (64, 512, 4096), 20
 ROUTE_KEYS = 200_000
+# Transactions (phase 6) and K9-K11: a probe chain over a table about 90%
+# full, fig_txn's crash stages and streams at the slice's cluster, the gc
+# sync batch and fig_fastpath's old-vs-new record.
+TXN_PROBES, TXN_FILL = 2000, 2.0
+GC_GEOMETRIES, GC_SIZES = ((1024, 4), (4096, 1)), (0, 50, 64, 1024)
+SEQ_BATCHES = (64, 512, 4096)
+CRASH_TXNS, STREAM_TXNS, STREAM_ITEMS = 64, 1000, 100_000
 
 
 class SmokeFailure(RuntimeError):
@@ -188,6 +222,53 @@ def phase_table_parity(np, parity, card, device, sync, key_lanes):
     results = parity.check_table_kernels(keys, records, fastpaths, scans,
                                          device=device)
     sync()
+    for r in results:
+        say(card, f"parity {r.name}: {r.outputs} integers, "
+                  f"max_abs_err {r.max_abs_err}, outcomes by code "
+                  f"{r.coverage.tolist()}")
+        check(r.outputs > 0 and r.max_abs_err == 0,
+              f"{r.name} disagrees with its plain version")
+        check(not r.missed, f"{r.name}: the inputs never reach {r.missed}")
+    return {r.name: r for r in results}
+
+
+def phase_txn_parity(np, parity, card, device, sync):
+    """K9-K11 against their plain versions at full size: a chain of
+    TXN_PROBES probes of 1..16 keys over a 1024 x 4 table about 90% full
+    (a key pool of twice the slots, own set on a tenth of the held keys),
+    gc batches of GC_SIZES at 1024 x 4 and 4096 x 1, and the sequential
+    record at 1024 x 4 over SEQ_BATCHES on an empty table and on one that
+    K6 filled with mixed classes."""
+    from repro_torch.kernels import (
+        WitnessTable,
+        witness_record,
+        witness_table_to_numpy,
+    )
+
+    rng = np.random.default_rng(SEED + 7)
+    S, W = TABLE_SETS, TABLE_WAYS
+    pool = parity.key_pool(rng, 2 * S * W, S)
+    planes = parity.table_planes(rng, pool, S, W, fill=TXN_FILL)
+    probes = parity.txn_chain(rng, pool, planes, TXN_PROBES)
+    gcs = []
+    for gs, gw in GC_GEOMETRIES:
+        gp = parity.gc_planes(rng, parity.key_pool(rng, 2 * gs * gw, gs),
+                              gs, gw)
+        gcs += [(gp, parity.gc_entries(rng, gp, G)) for G in GC_SIZES]
+    k6 = WitnessTable.empty(S, W, device=device)
+    witness_record(k6, **parity.table_batch(rng, pool, 2 * S * W, W))
+    filled = witness_table_to_numpy(k6)
+    seqs = []
+    for B in SEQ_BATCHES:
+        for base in (_empty_planes(np, S, W), filled):
+            q = parity.table_batch(rng, pool, B, W)
+            seqs.append((base, dict(q_hi=q["q_hi"], q_lo=q["q_lo"])))
+    results = parity.check_txn_kernels(planes, probes, gcs, seqs,
+                                       device=device)
+    sync()
+    say(card, f"parity: K9 chain from a table {(planes[2] > 0).mean():.3f} "
+              f"full, K6-filled table {(filled[2] > 0).mean():.3f} full "
+              f"for K11")
     for r in results:
         say(card, f"parity {r.name}: {r.outputs} integers, "
                   f"max_abs_err {r.max_abs_err}, outcomes by code "
@@ -574,6 +655,349 @@ def _table_breakdown(np, torch, card, rng, device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: transactions on the device backend (fig_txn's claims 1-3) and
+# the table ops K9-K11 (fig_fastpath's old-vs-new record, the gc chain)
+# ---------------------------------------------------------------------------
+def _txn_stream(cluster, cross, sync):
+    """STREAM_TXNS transactions of fig_txn's stream through one cluster.
+    Returns per transaction (status, reads, fast_path, rtts, shards), the
+    first transaction after which each shard's witnesses had a FULL
+    reject, and the wall time of the workload and ``cluster.txn`` calls
+    alone (the bookkeeping for the checks is left out of it)."""
+    from repro_torch.sim import TxnWorkload
+
+    wl = TxnWorkload(n_shards=N_SHARDS, cross_shard_frac=cross,
+                     keys_per_txn=2, reads_per_txn=1, n_items=STREAM_ITEMS,
+                     seed=9)
+    session = cluster.new_client()
+    out, first_full, wall = [], {}, 0.0
+    for i in range(STREAM_TXNS):
+        t0 = time.perf_counter()
+        writes, reads = wl.next_txn()
+        o = cluster.txn(session, writes, reads)
+        wall += time.perf_counter() - t0
+        shards = sorted({cluster.shard_of(k) for k, _ in writes}
+                        | {cluster.shard_of(k) for k in reads})
+        out.append((o.status.value, o.reads, o.fast_path, o.rtts, shards))
+        for sid, n in enumerate(_full_by_shard(cluster)):
+            if n:
+                first_full.setdefault(sid, i)
+    t0 = time.perf_counter()
+    sync()
+    return out, first_full, wall + time.perf_counter() - t0
+
+
+def _txn_breakdown(torch, card, cluster, n=100):
+    """Where a cross-shard transaction's time goes, on the cluster of the
+    cross-shard stream: device busy against wall over ``n`` transactions
+    under the profiler, then the host's self time by file over ``n`` more
+    under cProfile (read the shares: cProfile inflates Python)."""
+    import cProfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.sim import TxnWorkload
+
+    wl = TxnWorkload(n_shards=N_SHARDS, cross_shard_frac=1.0,
+                     keys_per_txn=2, reads_per_txn=1, n_items=STREAM_ITEMS,
+                     seed=10)
+    session = cluster.new_client()
+
+    def drive():
+        for _ in range(n):
+            cluster.txn(session, *wl.next_txn())
+        torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drive()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = _device_us(prof)
+    prof = cProfile.Profile()
+    prof.enable()
+    drive()
+    prof.disable()
+    total, shares = _self_time_by_file(prof)
+    idle = None if busy_us is None else 1.0 - busy_us / wall_us
+    say(card, f"txn breakdown: {n} cross-shard transactions under the "
+              f"profiler: wall {wall_us / 1e3:.1f} ms, device "
+              + ("busy not measured" if busy_us is None else
+                 f"busy {busy_us / 1e3:.3f} ms, idle share {idle:.4f}"))
+    say(card, f"txn breakdown: host self time of {n} more under cProfile, "
+              f"{total * 1e3:.1f} ms, by file: "
+              + ", ".join(f"{f} {sh:.3f}" for sh, f in shares[:8]))
+    return dict(wall_us=wall_us, busy_us=busy_us, idle_share=idle,
+                host_ms=total * 1e3, shares={f: sh for sh, f in shares[:20]})
+
+
+def phase_txn(np, torch, card, device, sync):
+    """fig_txn's claims 1-3 on the card at the slice's cluster, the
+    single-table K9-K11 path, and their launches (counted from 0 at the
+    phase's start and read before the old-vs-new timing loop).  Returns
+    (launches, what it measured, the shapes for phase 4)."""
+    from repro_torch.core import (
+        DeviceWitness,
+        ShardedCluster,
+        TxnStatus,
+        Witness,
+        WitnessGeometry,
+    )
+    from repro_torch.core.types import Op, OpType
+    from repro_torch.kernels import (
+        WitnessTable,
+        dispatch_count,
+        ops as kops,
+        reset_dispatch_count,
+        txn_probe,
+        witness_gc,
+        witness_record,
+        witness_record_seq,
+        witness_table_to_numpy,
+    )
+    from repro_torch.sim import TXN_CRASH_STAGES, run_txn_crash_scenario
+
+    rng = np.random.default_rng(SEED + 8)
+    kops.reset_launch_counts()                  # counts start here ...
+    info = {}
+
+    # Claim 1: atomicity under coordinator crashes at every 2PC stage,
+    # with and without a participant crash, against the Python backend.
+    crash = []
+    t0 = time.perf_counter()
+    for stage in TXN_CRASH_STAGES:
+        for participant in (False, True):
+            kw = dict(stage=stage, n_shards=N_SHARDS, n_txns=CRASH_TXNS,
+                      participant_crash=participant, seed=11 + len(crash))
+            r = run_txn_crash_scenario(witness_backend="device",
+                                       device=device, **kw)
+            p = run_txn_crash_scenario(**kw)
+            check(r.intents_after == 0, f"{stage}: {r.intents_after} intents "
+                                        f"left after recovery")
+            check(r.history_ok, f"{stage}: strict checker violation on "
+                                f"{r.offending_key}")
+            check(r.crashed_decision in ("COMMITTED", "ABORTED"),
+                  f"{stage}: crashed transaction undecided")
+            check((r.committed, r.aborted, r.crashed_decision, r.final_reads)
+                  == (p.committed, p.aborted, p.crashed_decision,
+                      p.final_reads),
+                  f"{stage}: the device backend decided differently from "
+                  f"the Python backend")
+            crash.append(dict(stage=stage, participant_crash=participant,
+                              committed=r.committed, aborted=r.aborted,
+                              decision=r.crashed_decision))
+    info["crash_s"] = time.perf_counter() - t0
+    say(card, f"txn crashes: {len(crash)} runs at {N_SHARDS} shards x "
+              f"{CRASH_TXNS} transactions on the device backend, each atomic "
+              f"(no intent left, strict checker green, crashed transaction "
+              f"decided: {[c['decision'] for c in crash]}) and equal to the "
+              f"Python backend, in {info['crash_s']:.1f} s")
+    info["crash"] = crash
+
+    # Claim 2: single-shard transactions keep 1 RTT, cross-shard ones pay
+    # one more round; both backends give the same statuses and reads, and
+    # the device backend takes the same path on the card as on the CPU's
+    # plain versions.
+    streams = {}
+    for label, cross in (("single", 0.0), ("cross", 1.0)):
+        runs = {}
+        for run_name, backend, on in (("device", "device", device),
+                                      ("plain", "device", "cpu"),
+                                      ("python", "python", "cpu")):
+            cluster = ShardedCluster(n_shards=N_SHARDS, f=F,
+                                     geometry=WitnessGeometry(N_SETS, N_WAYS),
+                                     sync_batch=50, witness_backend=backend,
+                                     seed=5, device=on)
+            runs[run_name] = _txn_stream(cluster, cross, sync)
+            if run_name == "device":
+                dev_cluster = cluster
+        (dev, dev_full, dev_s), (py, py_full, py_s) = (runs["device"],
+                                                       runs["python"])
+        plain = runs["plain"][0]
+        check([t[:4] for t in dev] == [t[:4] for t in plain],
+              f"{label}: a transaction's (status, reads, fast_path, rtts) "
+              f"differs between the card and the plain versions on the CPU")
+        check([(t[0], t[1]) for t in dev] == [(t[0], t[1]) for t in py],
+              f"{label}: statuses or reads differ from the Python backend")
+        check(all(t[0] == TxnStatus.COMMITTED.value for t in dev),
+              f"{label}: a transaction did not commit")
+        # The device witness fills 16 of its 1024 sets at 64 shards (the
+        # set placement of phase 2), so witnesses reject records as FULL
+        # and those transactions take the sync path.  A transaction's path
+        # may differ from the Python backend's only in a shard with a FULL
+        # reject by then, and fig_txn's 1-RTT bound is held on the others.
+        def after_full(i):
+            return any(min(dev_full.get(sid, STREAM_TXNS),
+                           py_full.get(sid, STREAM_TXNS)) <= i
+                       for sid in dev[i][4])
+
+        diff = [i for i, (a, b) in enumerate(zip(dev, py))
+                if (a[2], a[3]) != (b[2], b[3])]
+        stray = [i for i in diff if not after_full(i)]
+        check(not stray, f"{label}: {len(stray)} transactions (first "
+                         f"{stray[:5]}) differ in path from the Python "
+                         f"backend in shards with no FULL reject")
+        clean = [t for i, t in enumerate(dev) if not after_full(i)]
+        n, m = len(dev), len(clean)
+        row = dict(fast_frac=sum(t[2] for t in dev) / n,
+                   mean_rounds=sum(t[3] for t in dev) / n,
+                   clean_txns=m, clean_fast_frac=sum(t[2] for t in clean) / m,
+                   clean_mean_rounds=sum(t[3] for t in clean) / m,
+                   python_fast_frac=sum(t[2] for t in py) / n,
+                   python_mean_rounds=sum(t[3] for t in py) / n,
+                   ktxn_per_s=n / dev_s / 1e3,
+                   python_ktxn_per_s=n / py_s / 1e3, path_diff=len(diff),
+                   full_shards=len(set(dev_full) | set(py_full)))
+        streams[label] = row
+        say(card, "txn stream {label}: {n} transactions; device backend: "
+                  "fast share {fast_frac:.4f}, mean rounds {mean_rounds:.4f}, "
+                  "{ktxn_per_s:.3f} ktxn/s; on the {clean_txns} in shards "
+                  "with no witness FULL reject yet: fast share "
+                  "{clean_fast_frac:.4f}, mean rounds "
+                  "{clean_mean_rounds:.4f}; Python backend: fast share "
+                  "{python_fast_frac:.4f}, mean rounds "
+                  "{python_mean_rounds:.4f}, {python_ktxn_per_s:.3f} "
+                  "ktxn/s; statuses and reads equal, path differs on "
+                  "{path_diff} (all after a FULL reject, in {full_shards} "
+                  "shards); status, reads, fast path and rounds of every "
+                  "transaction equal on the card and on the plain versions "
+                  "on the CPU".format(label=label, n=n, **row))
+    single, cross = streams["single"], streams["cross"]
+    for key in ("clean_", "python_"):
+        check(single[key + "fast_frac"] >= 0.95
+              and single[key + "mean_rounds"] <= 1.05,
+              f"single-shard transactions left the 1-RTT path: {single}")
+    check(min(cross["mean_rounds"], cross["python_mean_rounds"]) >= 2.0,
+          f"cross-shard transactions paid under 2 rounds: {cross}")
+    info["streams"] = streams
+    info["breakdown"] = _txn_breakdown(torch, card, dev_cluster)
+
+    # Claim 3: the grouped probe is one dispatch on accept and on reject,
+    # record-then-rollback two on reject.
+    def fresh():
+        w = DeviceWitness(N_SETS, N_WAYS, device=device)
+        w.start(master_id=1)
+        w.record(1, (7,), (999, 1), Op(OpType.SET, ("c",), ("v",), (999, 1)))
+        return w
+
+    multi = Op(OpType.MSET, ("a", "b", "c"), (1, 2, 3), (1000, 1))
+    counts = {}
+    for label, call in (
+            ("reject", lambda w: w._record_keys((5, 6, 7), multi.rpc_id,
+                                                multi)),
+            ("rollback", lambda w: w._record_keys_rollback(
+                (5, 6, 7), multi.rpc_id, multi)),
+            ("accept", lambda w: w._record_keys((5, 6, 8), (1001, 1),
+                                                multi))):
+        w = fresh()
+        reset_dispatch_count()
+        counts[label] = (call(w).value, dispatch_count())
+    check(counts["accept"] == ("ACCEPTED", 1)
+          and counts["reject"] == ("REJECTED", 1)
+          and counts["rollback"] == ("REJECTED", 2),
+          f"probe dispatches {counts}")
+    say(card, f"txn probe: dispatches and verdicts {counts}")
+    info["probe_dispatches"] = counts
+
+    # Probe parity: collision-heavy multi-key ops, DeviceWitness against the
+    # Python Witness; then txn_probe on the card against its plain version
+    # over an evolving 64 x 4 table (fig_txn's check_probe_parity).
+    r = np.random.default_rng(7)
+    py, dv = Witness(N_SETS, N_WAYS), DeviceWitness(N_SETS, N_WAYS,
+                                                    device=device)
+    py.start(1)
+    dv.start(1)
+    for i in range(60):
+        khs = tuple(int(k) for k in r.integers(0, 24, int(r.integers(1, 5))))
+        rpc = (50 + i, 1)
+        op = Op(OpType.MSET, tuple(f"k{k}" for k in khs),
+                tuple(range(len(khs))), rpc)
+        st_py, st_dv = py.record(1, khs, rpc, op), dv.record(1, khs, rpc, op)
+        check(st_py == st_dv, f"op {i} {khs}: Witness {st_py}, "
+                              f"DeviceWitness {st_dv}")
+        if st_py.value == "ACCEPTED":
+            check(dv.record(1, khs, rpc, op) == py.record(1, khs, rpc, op),
+                  f"op {i}: the retry's verdicts differ")
+    card_t = WitnessTable.empty(64, 4, device=device)
+    plain_t = WitnessTable.empty(64, 4, device="cpu")
+    probes = []
+    for i in range(60):
+        n_keys = int(r.integers(1, 6))
+        hi = r.integers(0, 4, n_keys).astype(np.uint32)
+        lo = r.integers(0, 4, n_keys).astype(np.uint32)
+        a, b = txn_probe(card_t, hi, lo), txn_probe(plain_t, hi, lo)
+        check(a.accepted == b.accepted and (a.hit == b.hit).all(),
+              f"probe {i}: the card and the plain version disagree")
+        for x, y in zip(witness_table_to_numpy(card_t),
+                        witness_table_to_numpy(plain_t)):
+            check((x == y).all(), f"probe {i}: tables differ")
+        probes.append((hi, lo))
+    say(card, "txn probe: 60 collision-heavy ops give the Python Witness's "
+              "verdicts on DeviceWitness (retries included); 60 txn_probe "
+              "calls on the card equal the plain version table for table")
+
+    # fig_fastpath's old vs new record: K11 against K6 at 1024 x 4, one
+    # call each per batch here; they are timed after the launches are read.
+    old_new = []
+    for B in SEQ_BATCHES:
+        qh, ql = _random_lanes(np, rng, B)
+        t = WitnessTable.empty(TABLE_SETS, TABLE_WAYS, device=device)
+        acc_seq = witness_record_seq(t, qh, ql)[0]
+        for p in t:
+            p.zero_()
+        acc_new = witness_record(t, qh, ql)[0]
+        check((acc_seq == acc_new).all(),
+              f"B={B}: K11 and K6 accept differently on an empty table")
+        old_new.append((B, t, qh, ql))
+
+    # The record -> gc -> record chain at full size.
+    t = WitnessTable.empty(TABLE_SETS, TABLE_WAYS, device=device)
+    qh, ql = _random_lanes(np, rng, TABLE_BATCH)
+    acc, t = witness_record(t, qh, ql)
+    ok = np.flatnonzero(acc == 1)
+    half = ok[: ok.size // 2]
+    gc_table = t.clone()
+    witness_gc(t, qh[half], ql[half])
+    check(int(t.occ.count_nonzero()) == ok.size - half.size,
+          "gc left stale occupancy")
+    acc2, t = witness_record(t, qh[half], ql[half])
+    check((acc2 == 1).all() and int(t.occ.count_nonzero()) == ok.size,
+          "re-recorded keys were not all accepted after gc")
+    say(card, f"gc chain: {TABLE_BATCH} lanes into {TABLE_SETS}x"
+              f"{TABLE_WAYS}, {ok.size} "
+              f"accepted, gc of {half.size}, all re-recorded, no stale "
+              f"occupancy")
+
+    launches = {k.name: k.launches for k in   # ... and are read here
+                kops.GANG_KERNELS[2:] + kops.TXN_KERNELS}
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched in phase 6")
+    say(card, f"phase 6: kernel launches {launches}")
+
+    seq_rows = []
+    for B, bt, bh, bl in old_new:
+        def clear():
+            for p in bt:
+                p.zero_()
+
+        row = dict(batch=B)
+        for name, fn in (("seq", witness_record_seq), ("setpar",
+                                                       witness_record)):
+            us = _event_ms(torch, lambda: fn(bt, bh, bl), clear, 20) * 1e3
+            row[f"{name}_us"], row[f"{name}_records_per_s"] = us, B / us * 1e6
+        seq_rows.append(row)
+        say(card, f"old vs new record, {TABLE_SETS}x{TABLE_WAYS}, batch {B}: "
+                  f"witness_record_seq "
+                  f"{row['seq_us']:.1f} us ({row['seq_records_per_s']:.0f} "
+                  f"records/s), witness_record {row['setpar_us']:.1f} us "
+                  f"({row['setpar_records_per_s']:.0f} records/s); accept "
+                  f"bits equal")
+    info["seq_rows"] = seq_rows
+    shapes = dict(probe_table=card_t, probe=probes[-1], gc_table=gc_table,
+                  gc_entries=(qh[half], ql[half]))
+    return launches, info, shapes
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: times at phase 2's shapes
 # ---------------------------------------------------------------------------
 def _event_ms(torch, fn, restore, iters):
@@ -629,6 +1053,16 @@ def _bound_ms(nbytes, nops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / INT32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _join_ops(n, g, same_key_pairs=0):
+    """Integer operations of a sort-merge join that looks each of ``n``
+    keys up among ``g`` entries: (n + g) * ceil(log2 g) compares of a
+    64-bit key at 2 operations each, and 3 for each (key, entry) pair of
+    equal keys whose classes a scan checks.  A brute-force scan of every
+    pair is the kernels' algorithm, not the work the function needs."""
+    steps = max(1, (max(g, 2) - 1).bit_length())
+    return 2 * (n + g) * steps + 3 * same_key_pairs
 
 
 def _probe_bytes(np, rows, n_ways):
@@ -803,8 +1237,8 @@ def phase_table_times(np, torch, card, device, key_lanes):
     """K1 and K6-K8 at phase 5's shapes.  Bounds count what this run's data
     needs: each operand once without padding or valid flags, the three
     planes of each probed set once, each table word the call changed, and
-    for a scan every (query, window entry) pair up to the query's first
-    hit, at 6 integer operations a pair."""
+    for a scan the operations of a sort-merge join of the queries against
+    the valid window entries (``_join_ops``)."""
     from repro_torch.kernels import WitnessTable, ops as kops, parity, ref
 
     dev = torch.device(device)
@@ -828,16 +1262,13 @@ def phase_table_times(np, torch, card, device, key_lanes):
         torch.cuda.synchronize()
         return 4 * sum(int((a != b).sum()) for a, b in zip(before, table))
 
-    def scan_pairs(q_hi, q_lo, q_cls, w_hi, w_lo, w_valid):
-        """Pairs a scan needs: up to each query's first conflicting entry,
-        the whole window for a query with none."""
-        mrow = ref.conflict_matrix_np()[q_cls]
-        wcls = np.maximum(w_valid - 1, 0)
-        hit = ((q_hi[:, None] == w_hi[None]) & (q_lo[:, None] == w_lo[None])
-               & (w_valid[None] > 0)
-               & (((mrow[:, None] >> wcls[None]) & 1) == 1))
-        first = np.where(hit.any(1), hit.argmax(1) + 1, w_hi.size)
-        return int(first.sum())
+    def scan_ops(q_hi, q_lo, w_hi, w_lo, w_valid):
+        """Operations a scan needs: a join of the queries against the
+        valid window entries, with a class check per equal-key pair."""
+        live = w_valid > 0
+        same = ((q_hi[:, None] == w_hi[live][None])
+                & (q_lo[:, None] == w_lo[live][None]))
+        return _join_ops(q_hi.size, int(live.sum()), int(same.sum()))
 
     out = {}
     # K1: keyhash2x32 over phase 2's keyspace, 16 B per key.  Back to back
@@ -889,8 +1320,8 @@ def phase_table_times(np, torch, card, device, key_lanes):
     fargs = kops.table_fastpath_operands(table0, **fp)
     qh, ql = ref.np_keyhash2x32(fp["key_hi"], fp["key_lo"])
     sets = np.unique(ql & np.uint32(TABLE_SETS - 1)).size
-    pairs = scan_pairs(qh, ql, fp["key_cls"], fp["window_hi"],
-                       fp["window_lo"], fp["window_valid"])
+    nops = scan_ops(qh, ql, fp["window_hi"], fp["window_lo"],
+                    fp["window_valid"])
     nbytes = (TABLE_BATCH * 12 + WINDOW * 12 + fp["slot_map"].size * 4
               + TABLE_BATCH * 20 + sets * TABLE_WAYS * 12
               + changed_bytes(
@@ -899,17 +1330,17 @@ def phase_table_times(np, torch, card, device, key_lanes):
     out["fastpath_record_scan"] = timed(
         lambda: kops.fastpath_record_scan_cuda(table, *fargs),
         lambda: ref.fastpath_record_scan_plain(table, *fargs), restore,
-        nbytes, pairs * 6 + TABLE_BATCH * (29 + TABLE_WAYS * 6))
+        nbytes, nops + TABLE_BATCH * (29 + TABLE_WAYS * 6))
 
     # K8: 4096 queries against a 1024-entry window.
     sc = parity.scan_batch(rng, pool, TABLE_BATCH, WINDOW)
     sargs = kops.scan_operands(dev, **sc)
-    pairs = scan_pairs(sc["q_hi"], sc["q_lo"], sc["q_cls"], sc["w_hi"],
-                       sc["w_lo"], sc["w_valid"])
+    nops = scan_ops(sc["q_hi"], sc["q_lo"], sc["w_hi"], sc["w_lo"],
+                    sc["w_valid"])
     out["conflict_scan"] = timed(
         lambda: kops.conflict_scan_cuda(*sargs),
         lambda: ref.conflict_scan_plain(*sargs), lambda: None,
-        TABLE_BATCH * 16 + WINDOW * 12, pairs * 6)
+        TABLE_BATCH * 16 + WINDOW * 12, nops)
     for name, t in out.items():
         dms = ("not measured" if t["device_ms"] is None
                else f"{t['device_ms']:.4f} ms")
@@ -920,6 +1351,104 @@ def phase_table_times(np, torch, card, device, key_lanes):
                   f"device time {dms} (profiler), plain "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.6f} ms "
                   f"({t['bound'][1]}, {t['bytes']} B, {t['ops']} ops)")
+    return out
+
+
+def phase_txn_times(np, torch, card, device, shapes):
+    """K9-K11 at phase 6's shapes: one txn_probe of the probe-parity chain
+    on its 64 x 4 table, the gc chain's witness_gc at 1024 x 4, and
+    witness_record_seq of TABLE_BATCH lanes into an empty 1024 x 4 table.
+    Bounds count what this run's data needs: each operand once without
+    padding or valid flags, the three planes of each probed set once, each
+    table word the call changed, and for the gc the operations of a
+    sort-merge join of the held slots' keys against the entries."""
+    from repro_torch.kernels import WitnessTable, ops as kops, ref
+
+    dev = torch.device(device)
+    out = {}
+
+    def timed(kernel, plain, restore, nbytes, nops):
+        t = dict(ms=_event_ms(torch, kernel, restore, 50),
+                 plain_ms=_event_ms(torch, plain, restore, 5),
+                 bytes=nbytes, ops=nops, bound=_bound_ms(nbytes, nops))
+        restore()
+        t["device_ms"] = _device_ms(torch, kernel)
+        return t
+
+    def restorer(table, table0):
+        def restore():
+            for p, p0 in zip(table, table0):
+                p.copy_(p0)
+        return restore
+
+    def changed_bytes(fn, table, restore):
+        restore()
+        before = [p.clone() for p in table]
+        fn()
+        torch.cuda.synchronize()
+        return 4 * sum(int((a != b).sum()) for a, b in zip(before, table))
+
+    # K9: the last probe of phase 6's chain, on the 64 x 4 table it left.
+    table0 = shapes["probe_table"].clone()
+    table = table0.clone()
+    restore = restorer(table, table0)
+    hi, lo = shapes["probe"]
+    K = hi.size
+    pargs = kops.txn_probe_operands(table0, hi, lo)
+    sets = np.unique(ref.np_keyhash2x32(hi, lo)[1] & np.uint32(63)).size
+    nbytes = (K * 12 + sets * 4 * 12 + 4 + K * 12
+              + changed_bytes(lambda: kops.txn_probe_cuda(table, *pargs),
+                              table, restore))
+    out["txn_probe"] = timed(lambda: kops.txn_probe_cuda(table, *pargs),
+                             lambda: ref.txn_probe_plain(table, *pargs),
+                             restore, nbytes,
+                             K * (29 + 4 * 6) + K * (K - 1) // 2 * 3)
+
+    # K10: the gc chain's batch on the table it cleared.
+    table0 = shapes["gc_table"]
+    table = table0.clone()
+    restore = restorer(table, table0)
+    g_hi, g_lo = shapes["gc_entries"]
+    gargs = kops.table_gc_operands(table0, g_hi, g_lo)
+    occ = table0.occ.cpu().numpy().reshape(-1)
+    nbytes = (occ.size * 12 + g_hi.size * 8
+              + changed_bytes(lambda: kops.witness_gc_cuda(table, *gargs),
+                              table, restore))
+    out["witness_gc"] = timed(lambda: kops.witness_gc_cuda(table, *gargs),
+                              lambda: ref.witness_gc_plain(table, *gargs),
+                              restore, nbytes,
+                              _join_ops(int((occ > 0).sum()), g_hi.size))
+
+    # K11: fig_fastpath's sequential baseline at its largest batch.
+    rng = np.random.default_rng(SEED + 9)
+    table = WitnessTable.empty(TABLE_SETS, TABLE_WAYS, device=dev)
+
+    def clear():
+        for p in table:
+            p.zero_()
+
+    qh, ql = _random_lanes(np, rng, TABLE_BATCH)
+    sargs = kops.seq_operands(table, qh, ql)
+    sets = np.unique(ql & np.uint32(TABLE_SETS - 1)).size
+    nbytes = (TABLE_BATCH * 12 + sets * TABLE_WAYS * 12
+              + changed_bytes(lambda: kops.witness_record_seq_cuda(
+                  table, *sargs), table, clear))
+    out["witness_record_seq"] = timed(
+        lambda: kops.witness_record_seq_cuda(table, *sargs),
+        lambda: ref.witness_record_seq_plain(table, *sargs), clear, nbytes,
+        TABLE_BATCH * TABLE_WAYS * 4)
+    out["witness_record_seq"]["chain"] = TABLE_BATCH
+    for name, t in out.items():
+        dms = ("not measured" if t["device_ms"] is None
+               else f"{t['device_ms']:.4f} ms")
+        chain = ("" if "chain" not in t else
+                 f"; a chain of {t['chain']} dependent steps, "
+                 f"{t['ms'] / t['chain'] * 1e6:.1f} ns a step")
+        say(card, f"time {name}: {t['ms']:.4f} ms per call (CUDA events), "
+                  f"device time {dms} (profiler), plain "
+                  f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.3e} ms "
+                  f"({t['bound'][1]}, {t['bytes']} B, {t['ops']} ops){chain}; "
+                  f"library none (no single PyTorch call computes it)")
     return out
 
 
@@ -958,7 +1487,6 @@ def _host_profile(np, torch, dev_cluster, card, rng, p):
     source file, the layers of the slice (cProfile inflates Python-heavy
     code, so read the shares, not the total)."""
     import cProfile
-    import pstats
 
     s = dev_cluster.new_client()
     ops = [s.op_set(f"user{k}", "host")
@@ -968,6 +1496,20 @@ def _host_profile(np, torch, dev_cluster, card, rng, p):
     dev_cluster.update_batch(s, ops)
     torch.cuda.synchronize()
     prof.disable()
+    total, shares = _self_time_by_file(prof)
+    say(card, f"host: self time of one fused batch under cProfile, "
+              f"{total * 1e3:.1f} ms, by file: "
+              + ", ".join(f"{f} {sh:.3f}" for sh, f in shares[:8]))
+    return dict(total_ms=total * 1e3,
+                shares={f: sh for sh, f in shares})
+
+
+def _self_time_by_file(prof):
+    """A cProfile run's self time summed by source file (the port's files
+    by path, C functions by name, packages by name).  Returns (total s,
+    [(share, file)] largest first)."""
+    import pstats
+
     by_file = {}
     for (path, _line, fn), (_cc, _nc, tt, _ct, _callers) in \
             pstats.Stats(prof).stats.items():
@@ -981,13 +1523,8 @@ def _host_profile(np, torch, dev_cluster, card, rng, p):
             name = Path(path).name
         by_file[name] = by_file.get(name, 0.0) + tt
     total = sum(by_file.values())
-    shares = sorted(((t / total, f) for f, t in by_file.items()),
-                    reverse=True)
-    say(card, f"host: self time of one fused batch under cProfile, "
-              f"{total * 1e3:.1f} ms, by file: "
-              + ", ".join(f"{f} {sh:.3f}" for sh, f in shares[:8]))
-    return dict(total_ms=total * 1e3,
-                shares={f: sh for sh, f in shares})
+    return total, sorted(((t / total, f) for f, t in by_file.items()),
+                         reverse=True)
 
 
 def main() -> int:
@@ -1013,16 +1550,38 @@ def main() -> int:
     for line in build.ptxas_reports():
         print(f"  {line}")
     sync = torch.cuda.synchronize
-    key_lanes = ycsb_key_lanes(np)
-    par = phase_parity(np, parity, card, "cuda", sync)
-    par.update(phase_table_parity(np, parity, card, "cuda", sync, key_lanes))
-    dev_cluster, launches, slice_info = phase_slice(np, card, "cuda", sync)
-    table_launches, table_info = phase_table_path(np, torch, card, "cuda",
-                                                  key_lanes)
+    wall = {"build": time.perf_counter() - t0}
+
+    def run(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        wall[name] = wall.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    key_lanes = run("parity", ycsb_key_lanes, np)
+    par = run("parity", phase_parity, np, parity, card, "cuda", sync)
+    par.update(run("parity", phase_table_parity, np, parity, card, "cuda",
+                   sync, key_lanes))
+    par.update(run("parity K9-K11", phase_txn_parity, np, parity, card,
+                   "cuda", sync))
+    dev_cluster, launches, slice_info = run("slice", phase_slice, np, card,
+                                            "cuda", sync)
+    table_launches, table_info = run("table path", phase_table_path, np,
+                                     torch, card, "cuda", key_lanes)
     launches.update(table_launches)
-    times = phase_times(np, torch, dev_cluster, card, "cuda")
-    times.update(phase_table_times(np, torch, card, "cuda", key_lanes))
-    idle = phase_idle(np, torch, dev_cluster, card)
+    txn_launches, txn_info, txn_shapes = run("transactions", phase_txn, np,
+                                             torch, card, "cuda", sync)
+    launches.update({k: n for k, n in txn_launches.items()
+                     if k not in launches})
+    times = run("times", phase_times, np, torch, dev_cluster, card, "cuda")
+    times.update(run("times", phase_table_times, np, torch, card, "cuda",
+                     key_lanes))
+    times.update(run("times K9-K11", phase_txn_times, np, torch, card,
+                     "cuda", txn_shapes))
+    idle = run("idle", phase_idle, np, torch, dev_cluster, card)
+    say(card, "wall s by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in wall.items())
+        + f"; total {time.perf_counter() - t0:.1f}")
     kernels = []
     for k in kops.KERNELS:
         t = times[k.name]
@@ -1035,7 +1594,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, kernels=kernels, slice=slice_info, table_path=table_info,
-        times=times, idle=idle,
+        txn=txn_info, txn_launches=txn_launches, times=times, idle=idle,
+        wall_s=wall,
         ptxas=build.ptxas_reports()), indent=1, default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,7 @@ port imports nothing of ``repro``); ``device_witness`` and ``fastbatch``
 hold the witness gang and the fused cluster batch over torch tensors, on
 the CUDA gang kernels of ``repro_torch.kernels``.  ``ShardedCluster``,
 ``ShardGroup`` and ``LocalCluster`` take ``device=`` ("cuda" by default)
-for the device witness backend.  ``consensus`` and ``overload`` are not
-copied yet.
+for the device witness backend.
 """
 from .backup import Backup, LogEntry
 from .client import (
@@ -18,10 +17,22 @@ from .client import (
     decide_multi,
 )
 from .config import ConfigManager, HeartbeatDetector, WitnessGeometry
+from .consensus import ConsensusCluster, replay_threshold, superquorum
 from .device_witness import DeviceWitness, WitnessGang, gc_many
 from .fastbatch import DeviceRing, FusedBatchDriver
 from .local import LocalCluster, OpOutcome
 from .master import DUP, ERROR, FAST, SYNCED, Master
+from .overload import (
+    AdmissionQueue,
+    AimdBound,
+    ArmorConfig,
+    BreakerState,
+    CircuitBreaker,
+    ClientThrottle,
+    DegradeLevel,
+    TokenBucket,
+    degrade_level,
+)
 from .migration import (
     MigrationManager,
     MigrationReport,
@@ -71,6 +82,10 @@ __all__ = [
     "decide_multi", "decide_commit", "combine_decisions",
     "ConfigManager", "HeartbeatDetector", "WitnessGeometry", "DeviceWitness",
     "WitnessGang", "gc_many", "DeviceRing", "FusedBatchDriver",
+    "AdmissionQueue", "AimdBound", "ArmorConfig", "BreakerState",
+    "CircuitBreaker",
+    "ClientThrottle", "DegradeLevel", "TokenBucket", "degrade_level",
+    "ConsensusCluster", "replay_threshold", "superquorum",
     "LocalCluster", "OpOutcome", "Master", "FAST", "SYNCED", "DUP", "ERROR",
     "RecoveryReport", "recover_master", "RiflTable", "KVStore",
     "ClusterRecoveryReport", "KeyRouter", "SlotRouter", "N_SLOTS",

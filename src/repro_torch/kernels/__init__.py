@@ -3,8 +3,9 @@
 CUDA C++ sources for sm_90a in ``csrc/`` (built with nvcc at first use, see
 ``build.py``), their plain PyTorch versions in ``ref.py``, and the public
 ops in ``ops.py``, which launch the kernels on CUDA tensors and run the
-plain versions on CPU tensors: the gang ops of the device witness backend
-and the single-table fast-path ops, as in ``repro.kernels``.
+plain versions on CPU tensors: the gang ops of the device witness backend,
+the single-table fast-path ops, and the single-table transaction probe, gc
+and sequential record, as in ``repro.kernels``.
 """
 from .ops import (
     DEFAULT_N_SLOTS,
@@ -12,6 +13,7 @@ from .ops import (
     FastPathResult,
     GangFastPathResult,
     GangRecordResult,
+    TxnProbeResult,
     conflict_scan,
     default_slot_map,
     dispatch_count,
@@ -25,7 +27,10 @@ from .ops import (
     reset_dispatch_count,
     reset_launch_counts,
     shard_route,
+    txn_probe,
+    witness_gc,
     witness_record,
+    witness_record_seq,
 )
 from .ref import (
     N_REASON_CODES,
@@ -50,6 +55,7 @@ __all__ = [
     "gang_from_numpy", "gang_gc", "gang_record", "gang_record_groups",
     "gang_to_numpy", "keyhash2x32", "launch_counts", "matrix_rows",
     "np_keyhash2x32", "reset_dispatch_count", "reset_launch_counts",
-    "ring_from_numpy", "ring_to_numpy", "shard_route", "witness_record",
+    "ring_from_numpy", "ring_to_numpy", "shard_route", "TxnProbeResult",
+    "txn_probe", "witness_gc", "witness_record", "witness_record_seq",
     "witness_table_from_numpy", "witness_table_to_numpy",
 ]

@@ -4,7 +4,9 @@ Counterpart of ``src/repro/kernels/ops.py``.  The gang ops:
 ``gang_record`` (K2), ``gang_record_groups`` (K5), ``gang_gc`` (K4) and
 ``gang_fastpath_batch`` (K3, with K2 as its record stage).  The single-table
 ops: ``keyhash2x32`` and ``shard_route`` (K1), ``witness_record`` (K6),
-``fastpath_batch`` (K7) and ``conflict_scan`` (K8).  Signatures, result
+``fastpath_batch`` (K7) and ``conflict_scan`` (K8), and the transaction
+and baseline ops of one table: ``txn_probe`` (K9, on K1's mix),
+``witness_gc`` (K10) and ``witness_record_seq`` (K11).  Signatures, result
 tuples and reason codes are the JAX package's, without its TPU-only options
 (``interpret``, ``tile_sets``, ``block*``).
 
@@ -108,9 +110,23 @@ CONFLICT_SCAN = CudaKernel(
     "src/repro/kernels/conflict_scan.py:71",
     {"conflict_scan_launch": [I, P, P, P, P, I, P, P, P, I, P, P]})
 
+TXN_PROBE = CudaKernel(
+    "txn_probe", _CSRC + "witness_txn.cu",
+    "src/repro/kernels/witness_record.py:496",
+    {"txn_probe_launch": [I, P, P, P, P, I, I] + [P] * 8})
+WITNESS_GC = CudaKernel(
+    "witness_gc", _CSRC + "witness_gc.cu",
+    "src/repro/kernels/witness_record.py:980",
+    {"witness_gc_launch": [I, I] + [P] * 6})
+WITNESS_RECORD_SEQ = CudaKernel(
+    "witness_record_seq", _CSRC + "witness_seq.cu",
+    "src/repro/kernels/witness_record.py:385",
+    {"witness_seq_launch": [I, P, P, I, I] + [P] * 5})
+
 GANG_KERNELS = (GANG_RECORD, GANG_FASTPATH, GANG_GC, GANG_GROUPS)
 TABLE_KERNELS = (KEYHASH, WITNESS_RECORD, FASTPATH_RECORD_SCAN, CONFLICT_SCAN)
-KERNELS = GANG_KERNELS + TABLE_KERNELS
+TXN_KERNELS = (TXN_PROBE, WITNESS_GC, WITNESS_RECORD_SEQ)
+KERNELS = GANG_KERNELS + TABLE_KERNELS + TXN_KERNELS
 
 
 def launch_counts() -> Dict[str, int]:
@@ -351,6 +367,52 @@ def conflict_scan_cuda(w_hi, w_lo, w_valid, q_hi, q_lo, q_cls):
                        _ptr(conflicts), _stream(dev))
     CONFLICT_SCAN.launches += 1
     return conflicts
+
+
+def txn_probe_cuda(table: WitnessTable, k_hi, k_lo, own, valid):
+    """K9 on the card; see ``ref.txn_probe_plain`` for the contract."""
+    dev = k_hi.device
+    _check_cuda(dev, *table, k_hi, k_lo, own, valid)
+    K = k_hi.shape[0]
+    if K > 1024:
+        raise ValueError(f"txn_probe takes at most 1024 keys, got {K}")
+    S, W = table.occ.shape
+    acc = torch.empty(1, dtype=torch.int32, device=dev)
+    hit, qh, ql = (torch.empty_like(k_hi) for _ in range(3))
+    TXN_PROBE.call("txn_probe_launch", K, _ptr(k_hi), _ptr(k_lo), _ptr(own),
+                   _ptr(valid), S, W, *(_ptr(p) for p in table), _ptr(acc),
+                   _ptr(hit), _ptr(qh), _ptr(ql), _stream(dev))
+    TXN_PROBE.launches += 1
+    return acc, hit, qh, ql
+
+
+def witness_gc_cuda(table: WitnessTable, g_hi, g_lo) -> None:
+    """K10 on the card; see ``ref.witness_gc_plain`` for the contract.  No
+    entries, no launch."""
+    dev = g_hi.device
+    _check_cuda(dev, *table, g_hi, g_lo)
+    if g_hi.shape[0] == 0:
+        return
+    WITNESS_GC.call("witness_gc_launch", table.occ.numel(), g_hi.shape[0],
+                    _ptr(g_hi), _ptr(g_lo), *(_ptr(p) for p in table),
+                    _stream(dev))
+    WITNESS_GC.launches += 1
+
+
+def witness_record_seq_cuda(table: WitnessTable, q_hi, q_lo) -> torch.Tensor:
+    """K11 on the card; see ``ref.witness_record_seq_plain`` for the
+    contract.  No queries, no launch."""
+    dev = q_hi.device
+    _check_cuda(dev, *table, q_hi, q_lo)
+    accepted = torch.zeros_like(q_hi)
+    if q_hi.shape[0] == 0:
+        return accepted
+    S, W = table.occ.shape
+    WITNESS_RECORD_SEQ.call("witness_seq_launch", q_hi.shape[0], _ptr(q_hi),
+                            _ptr(q_lo), S, W, *(_ptr(p) for p in table),
+                            _ptr(accepted), _stream(dev))
+    WITNESS_RECORD_SEQ.launches += 1
+    return accepted
 
 
 # ---------------------------------------------------------------------------
@@ -878,12 +940,102 @@ def fastpath_batch(table: WitnessTable, key_hi, key_lo, key_cls=None, *,
                           ql.view(np.uint32)[:B], table)
 
 
+# ---------------------------------------------------------------------------
+# Transaction and baseline ops of one table
+# ---------------------------------------------------------------------------
+class TxnProbeResult(NamedTuple):
+    """Result of one all-or-nothing multi-key record (ONE dispatch)."""
+    accepted: bool           # the whole op accepted (all keys placed/hit)
+    hit: np.ndarray          # [K] same-key table hit per key (caller order)
+    q_hi: np.ndarray         # mixed keyhash lanes of the op's keys: callers
+    q_lo: np.ndarray         # gc with these, extend windows on accept
+    table: WitnessTable      # updated iff accepted; bit-identical otherwise
+
+
+def txn_probe_operands(table: WitnessTable, key_hi, key_lo, own=None):
+    """Host inputs of ``txn_probe`` -> the padded device operands of
+    ``txn_probe_cuda`` / ``ref.txn_probe_plain`` after the table: k_hi,
+    k_lo, own, valid (K padded to a power-of-two bucket of at least 16)."""
+    _check_table(table)
+    key_hi, key_lo = _np(key_hi, np.uint32), _np(key_lo, np.uint32)
+    own = (np.zeros(key_hi.shape, np.int32) if own is None
+           else _np(own, np.int32))
+    K = _same_length("key_hi, key_lo and own", key_hi, key_lo, own)
+    return _to_device(table.occ.device, *_pad_valid(K, key_hi, key_lo, own))
+
+
+def txn_probe(table: WitnessTable, key_hi, key_lo,
+              own=None) -> TxnProbeResult:
+    """All-or-nothing record of ONE multi-key op (K9, on K1's mix): a
+    single dispatch on both the accept and the reject path.
+
+    ``key_hi``/``key_lo`` are the RAW 64-bit keyhash lanes of the op's
+    (deduplicated) keys; ``own[k] = 1`` marks keys the caller knows are
+    already held under this op's rpc_id (idempotent retry).  The table is
+    updated in place on accept and left bit-identical on reject, so callers
+    can rebind ``result.table`` unconditionally."""
+    _count_dispatch()
+    K = len(key_hi)
+    args = txn_probe_operands(table, key_hi, key_lo, own)
+    fn = _pick(table.occ.device, txn_probe_cuda, ref.txn_probe_plain)
+    acc, hit, qh, ql = _to_host(*fn(table, *args))
+    return TxnProbeResult(bool(acc[0]), hit[:K], qh.view(np.uint32)[:K],
+                          ql.view(np.uint32)[:K], table)
+
+
+def table_gc_operands(table: WitnessTable, g_hi, g_lo):
+    """Host inputs of ``witness_gc`` -> the device operands of
+    ``witness_gc_cuda`` / ``ref.witness_gc_plain`` after the table: g_hi,
+    g_lo (no padding; G may be 0)."""
+    _check_table(table)
+    g_hi, g_lo = _np(g_hi, np.uint32), _np(g_lo, np.uint32)
+    _same_length("g_hi and g_lo", g_hi, g_lo)
+    return _to_device(table.occ.device, g_hi, g_lo)
+
+
+def witness_gc(table: WitnessTable, g_hi, g_lo) -> WitnessTable:
+    """Clear synced entries (K10): ``occ <- 0`` in every occupied slot whose
+    MIXED key lanes equal a gc entry's; key planes untouched.  ONE dispatch,
+    also for an empty gc batch (which changes nothing).  Returns the table,
+    updated in place."""
+    _count_dispatch()
+    args = table_gc_operands(table, g_hi, g_lo)
+    _pick(table.occ.device, witness_gc_cuda, ref.witness_gc_plain)(table,
+                                                                   *args)
+    return table
+
+
+def seq_operands(table: WitnessTable, q_hi, q_lo):
+    """Host inputs of ``witness_record_seq`` -> the device operands of
+    ``witness_record_seq_cuda`` / ``ref.witness_record_seq_plain`` after
+    the table: q_hi, q_lo (no padding)."""
+    _check_table(table)
+    q_hi, q_lo = _np(q_hi, np.uint32), _np(q_lo, np.uint32)
+    _same_length("q_hi and q_lo", q_hi, q_lo)
+    return _to_device(table.occ.device, q_hi, q_lo)
+
+
+def witness_record_seq(table: WitnessTable, q_hi, q_lo):
+    """The pre-refactor sequential record (K11): MIXED lanes, the whole
+    batch one ordered loop, classless (conflict on ``occ == 1`` exactly).
+    Kept for old-vs-new measurement against ``witness_record`` (K6) and
+    for differential tests.  Returns (accepted [B] int32 numpy, table); the
+    table is updated in place."""
+    _count_dispatch()
+    args = seq_operands(table, q_hi, q_lo)
+    fn = _pick(table.occ.device, witness_record_seq_cuda,
+               ref.witness_record_seq_plain)
+    (acc,) = _to_host(fn(table, *args))
+    return acc, table
+
+
 __all__ = [
     "GangTable", "GangRecordResult", "GangFastPathResult", "N_REASON_CODES",
     "gang_record", "gang_record_groups", "gang_gc", "gang_fastpath_batch",
     "WitnessTable", "FastPathResult", "DEFAULT_N_SLOTS", "default_slot_map",
     "keyhash2x32", "shard_route", "witness_record", "conflict_scan",
-    "fastpath_batch", "dispatch_count", "reset_dispatch_count",
+    "fastpath_batch", "TxnProbeResult", "txn_probe", "witness_gc",
+    "witness_record_seq", "dispatch_count", "reset_dispatch_count",
     "launch_counts", "reset_launch_counts", "KERNELS", "GANG_KERNELS",
-    "TABLE_KERNELS", "CudaKernel",
+    "TABLE_KERNELS", "TXN_KERNELS", "CudaKernel",
 ]

@@ -8,12 +8,18 @@ rpc gc entries, aged lanes, and ring spans that wrap past CAP.  An rpc's op
 class is a function of its identity (one rpc is one op), as in the protocol.
 For the single-table kernels: windows of mixed classes, invalid entries and
 keys the batch repeats, so that scans hit and miss under every class
-pairing.
+pairing.  For the transaction probe, a chain of multi-key ops over a table
+near full (conflicts, FULL rejects, own-rpc retries, same-set inserters,
+duplicate keys, padding); for the table gc, stale keys left in cleared
+slots and repeated entries; for the sequential record, same keys held
+under other classes.
 
 The same inputs serve the CPU tests (plain versions against the JAX
 package's oracles) and ``chip_smoke.py`` (each CUDA kernel against its
-plain version on the card, :func:`check_kernels` for the gang kernels and
-:func:`check_table_kernels` for the single-table ones).
+plain version on the card, :func:`check_kernels` for the gang kernels,
+:func:`check_table_kernels` for the single-table ones and
+:func:`check_txn_kernels` for the transaction probe, the table gc and the
+sequential record).
 """
 from __future__ import annotations
 
@@ -34,7 +40,22 @@ CLASSES = np.array([0, 2, 5, 8], np.int32)
 # only valid entries whose classes the matrix lets commute (a miss).
 SCAN_HIT = 6
 SCAN_COMMUTES = 7
-N_CODES = 8
+# The transaction probe's ops (beyond 1 accept, 3 conflict, 4 full): an
+# accepted op with a key held under its own rpc, one whose inserters share a
+# set (distinct ways), one with a key twice, and one padded to its bucket.
+TXN_OWN_PASS = 8
+TXN_SAME_SET = 9
+TXN_DUP_KEY = 10
+TXN_PADDED = 11
+# The table gc's entries: one that clears an occupied slot, one that meets
+# no slot, one whose key is left only in cleared slots (occ == 0: stays 0,
+# no hit), one that repeats an earlier entry, and a batch of none.
+GC_HIT = 12
+GC_MISS = 13
+GC_STALE = 14
+GC_REPEAT = 15
+GC_EMPTY = 16
+N_CODES = 17
 
 # The outcomes (reason codes; gc: cleared bits) each kernel's inputs must
 # reach.  A fused batch carries fresh rpcs only, so its record stage never
@@ -45,7 +66,11 @@ BRANCHES = {"gang_record": (1, 2, 3, 4), "gang_record_groups": (1, 2, 3, 4),
             "gang_gc": (0, 1), "gang_fastpath": (1, 3, 4),
             "keyhash": (), "witness_record": (1, 3, 4, 5),
             "fastpath_record_scan": (1, 3, 4, 5, SCAN_HIT, SCAN_COMMUTES),
-            "conflict_scan": (SCAN_HIT, SCAN_COMMUTES)}
+            "conflict_scan": (SCAN_HIT, SCAN_COMMUTES),
+            "txn_probe": (1, 3, 4, TXN_OWN_PASS, TXN_SAME_SET, TXN_DUP_KEY,
+                          TXN_PADDED),
+            "witness_gc": (GC_HIT, GC_MISS, GC_STALE, GC_REPEAT, GC_EMPTY),
+            "witness_record_seq": (1, 3, 4, 5)}
 
 
 def cls_of_rpc(rpc_lo) -> np.ndarray:
@@ -507,9 +532,196 @@ def check_table_kernels(keys: dict, records, fastpaths, scans,
     return out
 
 
-__all__ = ["BRANCHES", "CLASSES", "KeyPool", "N_CODES", "Parity",
-           "SCAN_COMMUTES", "SCAN_HIT", "check_kernels", "check_table_kernels",
-           "cls_of_rpc", "fastpath_batch", "gang_planes", "gc_batch",
-           "group_batch", "key_pool", "reason_coverage", "record_batch",
-           "scan_batch", "scan_codes", "table_batch", "table_fastpath_batch",
-           "table_planes", "window"]
+# ---------------------------------------------------------------------------
+# Transaction probe (K9), table gc (K10), sequential record (K11)
+# ---------------------------------------------------------------------------
+def txn_chain(rng: np.random.Generator, pool: KeyPool, planes, n_ops: int,
+              max_keys: int = 16, own_frac: float = 0.1,
+              dup_frac: float = 0.05,
+              same_set_frac: float = 0.1) -> List[Dict[str, np.ndarray]]:
+    """``n_ops`` ``txn_probe`` ops for a chain that starts from ``planes``.
+
+    Most ops take 1..``max_keys`` RAW pool keys (``dup_frac`` of them
+    repeat a key); ``same_set_frac`` of them take 2 or 3 fresh keys of one
+    set that had two free ways or more in ``planes`` (same-set inserters),
+    and half of those are retried by the next op.  Each key has an
+    ``own_coin``, set with probability ``own_frac`` (on every key of a
+    retry): the chain marks a key ``own`` when its coin is set and the key
+    is held at that point (a retry of the op's own record)."""
+    occ = np.asarray(planes[2])
+    fresh = key_pool(rng, 8 * occ.shape[0], occ.shape[0])
+    roomy = [fresh.by_set[s] for s in np.flatnonzero((occ == 0).sum(1) >= 2)
+             if fresh.by_set[s].size >= 3]
+    out = []
+    while len(out) < n_ops:
+        if roomy and rng.random() < same_set_frac:
+            keys = roomy[rng.integers(len(roomy))]
+            k = rng.choice(keys, int(rng.integers(2, 4)), replace=False)
+            hi, lo = fresh.hi[k], fresh.lo[k]
+            retry = rng.random() < 0.5
+        else:
+            k = rng.integers(0, len(pool.hi), int(rng.integers(1,
+                                                               max_keys + 1)))
+            if k.size > 1 and rng.random() < dup_frac:
+                k[-1] = k[0]
+            hi, lo = pool.hi[k], pool.lo[k]
+            retry = False
+        out.append(dict(key_hi=hi, key_lo=lo, own_coin=(
+            rng.random(k.size) < own_frac).astype(np.int32)))
+        if retry:
+            out.append(dict(key_hi=hi, key_lo=lo,
+                            own_coin=np.ones(k.size, np.int32)))
+    return out[:n_ops]
+
+
+def held(table: ref.WitnessTable, k_hi: torch.Tensor,
+         k_lo: torch.Tensor) -> torch.Tensor:
+    """[K] int32: the RAW key is held (``occ > 0``) in its set of the
+    table, as the probe's ``hit`` reads it."""
+    S = table.occ.shape[0]
+    qh, ql = ref.keyhash2x32(k_hi, k_lo)
+    sets = ql.to(torch.int64) & (S - 1)
+    return ((table.occ[sets] > 0) & (table.keys_hi[sets] == qh[:, None])
+            & (table.keys_lo[sets] == ql[:, None])).any(1).to(torch.int32)
+
+
+def txn_codes(acc, hit, own, valid, q_lo, k_hi, k_lo,
+              n_sets: int) -> List[int]:
+    """The coverage codes of one probe (host arrays; ``acc`` a bool)."""
+    v = np.asarray(valid) == 1
+    hit, own = np.asarray(hit)[v], np.asarray(own)[v]
+    codes = [TXN_PADDED] if not v.all() else []
+    if acc:
+        codes.append(1)
+        if (hit & own).any():
+            codes.append(TXN_OWN_PASS)
+        sets = (np.asarray(q_lo)[v] & np.uint32(n_sets - 1))[hit == 0]
+        if np.unique(sets).size < sets.size:
+            codes.append(TXN_SAME_SET)
+    else:
+        codes.append(3 if (hit & (own == 0)).any() else 4)
+    keys = np.stack([np.asarray(k_hi)[v], np.asarray(k_lo)[v]], 1)
+    if np.unique(keys, axis=0).shape[0] < keys.shape[0]:
+        codes.append(TXN_DUP_KEY)
+    return codes
+
+
+def gc_planes(rng: np.random.Generator, pool: KeyPool, n_sets: int,
+              n_ways: int) -> Tuple[np.ndarray, ...]:
+    """A table for the gc: :func:`table_planes` at fill 0.8, with a fifth
+    of the held slots cleared as a gc leaves them (occ 0, keys kept)."""
+    khi, klo, occ = table_planes(rng, pool, n_sets, n_ways, fill=0.8)
+    occ[(occ > 0) & (rng.random(occ.shape) < 0.2)] = 0
+    return khi, klo, occ
+
+
+def gc_entries(rng: np.random.Generator, planes, G: int):
+    """``G`` MIXED gc entries for :func:`gc_planes`' table: half the keys of
+    held slots, a fifth keys left in cleared slots, a fifth fresh keys, and
+    a tenth repeats of earlier entries."""
+    khi, klo, occ = (np.asarray(p).reshape(-1) for p in planes)
+    live = np.flatnonzero(occ > 0)
+    stale = np.flatnonzero((occ == 0) & ((khi != 0) | (klo != 0)))
+    g_hi = rng.integers(0, 2**32, G, dtype=np.uint64).astype(np.uint32)
+    g_lo = rng.integers(0, 2**32, G, dtype=np.uint64).astype(np.uint32)
+    kind = rng.random(G)
+    for mask, src in ((kind < 0.5, live), ((kind >= 0.5) & (kind < 0.7),
+                                           stale)):
+        if src.size and mask.any():
+            at = src[rng.integers(0, src.size, int(mask.sum()))]
+            g_hi[mask], g_lo[mask] = khi[at], klo[at]
+    rep = np.flatnonzero(kind >= 0.9)
+    rep = rep[rep > 0]
+    src = (rng.random(rep.size) * rep).astype(np.int64)
+    g_hi[rep], g_lo[rep] = g_hi[src], g_lo[src]
+    return dict(g_hi=g_hi, g_lo=g_lo)
+
+
+def gc_codes(planes, g_hi, g_lo) -> List[int]:
+    """The coverage codes of one gc batch against the pre-gc table."""
+    g_hi, g_lo = np.asarray(g_hi, np.uint32), np.asarray(g_lo, np.uint32)
+    if g_hi.size == 0:
+        return [GC_EMPTY]
+    khi, klo, occ = (np.asarray(p).reshape(-1) for p in planes)
+    meets = (khi[None] == g_hi[:, None]) & (klo[None] == g_lo[:, None])
+    codes = np.where((meets & (occ[None] > 0)).any(1), GC_HIT,
+                     np.where(meets.any(1), GC_STALE, GC_MISS)).tolist()
+    keys = np.stack([g_hi, g_lo], 1)
+    return codes + [GC_REPEAT] * (keys.shape[0]
+                                  - np.unique(keys, axis=0).shape[0])
+
+
+def check_txn_kernels(probe_planes, probes, gcs, seqs,
+                      device="cuda") -> List[Parity]:
+    """Run K9, K10 and K11 and their plain versions on the same device
+    tensors (tables on identical copies); compare every output and all
+    three table planes.
+
+    ``probes`` (:func:`txn_chain`) run as one chain from ``probe_planes``,
+    the kernel's table and the plain version's in lockstep; a probe the
+    kernel rejects must leave its table bit-identical, which counts as part
+    of the error.  ``gcs`` are (planes, entries) cases of ``witness_gc``,
+    ``seqs`` (planes, queries) cases of ``witness_record_seq``."""
+    device = torch.device(device)
+    ta = ref.witness_table_from_numpy(probe_planes, device)
+    tb = ta.clone()
+    S = ta.occ.shape[0]
+    pairs, kept, steps = [], torch.zeros((), dtype=torch.int64,
+                                         device=device), []
+    for p in probes:
+        K = len(p["key_hi"])
+        k_hi, k_lo, coin, valid = ops._to_device(device, *ops._pad_valid(
+            K, p["key_hi"], p["key_lo"], p["own_coin"]))
+        own = coin * held(tb, k_hi, k_lo)
+        before = ta.clone()
+        ra = ops.txn_probe_cuda(ta, k_hi, k_lo, own, valid)
+        rb = ref.txn_probe_plain(tb, k_hi, k_lo, own, valid)
+        pairs += list(zip(ra, rb))
+        kept += (1 - ra[0][0]).to(torch.int64) * sum(
+            (a != b).sum() for a, b in zip(before, ta))
+        steps.append((rb[0], rb[1], own, valid, rb[3], k_hi, k_lo))
+    err, n = _diff(pairs + list(zip(ta, tb)))
+    codes = []
+    for step in steps:
+        acc, hit, own, valid, ql, k_hi, k_lo = (t.cpu().numpy()
+                                                for t in step)
+        codes += txn_codes(bool(acc[0]), hit, own, valid, ql.view(np.uint32),
+                           k_hi, k_lo, S)
+    out = [Parity("txn_probe", max(err, int(kept)), n,
+                  reason_coverage(np.array(codes, int), N_CODES))]
+
+    parts = []
+    for planes, g in gcs:
+        base = ref.witness_table_from_numpy(planes, device)
+        args = ops.table_gc_operands(base, **g)
+        ta, tb = base.clone(), base.clone()
+        ops.witness_gc_cuda(ta, *args)
+        ref.witness_gc_plain(tb, *args)
+        parts.append((*_diff(list(zip(ta, tb))), reason_coverage(
+            np.array(gc_codes(planes, g["g_hi"], g["g_lo"]), int), N_CODES)))
+    out.append(_merge("witness_gc", parts))
+
+    parts = []
+    for planes, q in seqs:
+        base = ref.witness_table_from_numpy(planes, device)
+        args = ops.seq_operands(base, q["q_hi"], q["q_lo"])
+        ta, tb, tc = base.clone(), base.clone(), base.clone()
+        ra = ops.witness_record_seq_cuda(ta, *args)
+        rb = ref.witness_record_seq_plain(tb, *args)
+        outcome = ref.witness_seq_outcomes_plain(tc, *args)
+        parts.append((*_diff([(ra, rb)] + list(zip(ta, tb))),
+                      _coverage(outcome, N_CODES)))
+    out.append(_merge("witness_record_seq", parts))
+    return out
+
+
+__all__ = ["BRANCHES", "CLASSES", "GC_EMPTY", "GC_HIT", "GC_MISS",
+           "GC_REPEAT", "GC_STALE", "KeyPool", "N_CODES", "Parity",
+           "SCAN_COMMUTES", "SCAN_HIT", "TXN_DUP_KEY", "TXN_OWN_PASS",
+           "TXN_PADDED", "TXN_SAME_SET", "check_kernels",
+           "check_table_kernels", "check_txn_kernels", "cls_of_rpc",
+           "fastpath_batch", "gang_planes", "gc_batch", "gc_codes",
+           "gc_entries", "gc_planes", "group_batch", "held", "key_pool",
+           "reason_coverage", "record_batch", "scan_batch", "scan_codes",
+           "table_batch", "table_fastpath_batch", "table_planes",
+           "txn_chain", "txn_codes", "window"]

@@ -5,8 +5,9 @@ signature as its launcher in ``ops.py``: the wrapper takes it for tensors
 that lie on the CPU, and ``chip_smoke.py`` holds every kernel against it on
 the card.  Nothing on the main path calls these for CUDA tensors.  Two
 families: the gang kernels (K2-K5, many witness tables stacked with rpc and
-age planes) and the single-table kernels (K1, K6-K8: one ``[S, W]`` table
-with key and class planes only, and the window scan).
+age planes) and the single-table kernels (K1, K6-K11: one ``[S, W]`` table
+with key and class planes only, the window scan, the transactional probe,
+the gc and the sequential record).
 
 Lane arithmetic.  The uint32 planes are stored as ``torch.int32`` holding
 the same bits (``np.ndarray.view(np.int32)`` in, ``.view(np.uint32)`` out);
@@ -606,3 +607,111 @@ def fastpath_record_scan_plain(table: WitnessTable, k_hi, k_lo, k_cls,
     con = conflict_scan_plain(w_hi, w_lo, w_valid, qh, ql, k_cls)
     con = torch.where(k_valid == 1, con, torch.zeros_like(con))
     return acc, con, shard, qh, ql
+
+
+# ---------------------------------------------------------------------------
+# K9-K11: the transactional probe, the gc and the sequential record of one
+# table (plain versions)
+# ---------------------------------------------------------------------------
+def txn_probe_plain(table: WitnessTable, k_hi, k_lo, own, valid):
+    """Plain version of the ``txn_probe`` kernel (K9, with K1's mix before
+    it): the all-or-nothing record of ONE op's K raw keys.
+
+    Every key decides against the PRE-op table: ``hit`` = the key is held
+    in its set (``occ > 0``).  A key with ``own = 1`` passes on a hit (a
+    retry of this op's own record) or if it seats; any other key must miss
+    and seat.  An inserter (valid, no hit) ranks among the op's earlier
+    inserters into its set and claims the set's (rank+1)-th free way; it
+    seats if the set has more free ways than its rank.  The op accepts iff
+    every valid key passes; only then are the inserters written (keys,
+    ``occ = 1``), so a rejected op leaves the table bit-identical.  Returns
+    (accepted [1], hit [K] masked by ``valid``, q_hi [K], q_lo [K]), int32.
+    """
+    S, W = table.occ.shape
+    K = k_hi.shape[0]
+    dev = k_hi.device
+    qh, ql = keyhash2x32(k_hi, k_lo)
+    sets = ql.to(torch.int64) & (S - 1)
+    row_hi, row_lo, row_occ = (table.keys_hi[sets], table.keys_lo[sets],
+                               table.occ[sets])                   # [K, W]
+    hit = ((row_occ > 0) & (row_hi == qh[:, None])
+           & (row_lo == ql[:, None])).any(1)
+    free = row_occ == 0
+    vk = valid == 1
+    claim = vk & ~hit
+    k_iota = torch.arange(K, device=dev)
+    earlier = k_iota[None, :] < k_iota[:, None]                     # j < k
+    rank = ((sets[:, None] == sets[None, :]) & earlier
+            & claim[None, :]).sum(1)
+    seat = free.sum(1) > rank
+    cfree = torch.cumsum(free.to(torch.int64), dim=1)
+    way = (free & (cfree == (rank + 1)[:, None])).to(torch.int8).argmax(1)
+    ok = torch.where(own == 1, hit | seat, ~hit & seat)
+    accepted = bool((ok | ~vk).all())
+    if accepted:
+        w = claim.nonzero().flatten()
+        table.keys_hi[sets[w], way[w]] = qh[w]
+        table.keys_lo[sets[w], way[w]] = ql[w]
+        table.occ[sets[w], way[w]] = 1
+    acc = torch.full((1,), int(accepted), dtype=torch.int32, device=dev)
+    return acc, (hit & vk).to(torch.int32), qh, ql
+
+
+def witness_gc_plain(table: WitnessTable, g_hi, g_lo) -> None:
+    """Plain version of the ``witness_gc`` kernel (K10): ``occ <- 0`` in
+    every slot of the table whose MIXED key lanes equal any gc entry's and
+    whose ``occ > 0``.  No set index, no rpc and no age: a slot anywhere
+    in the table clears on a key match; key planes are untouched.  G may
+    be 0.  The table is updated in place."""
+    if g_hi.shape[0] == 0:
+        return
+    m = ((table.keys_hi[:, :, None] == g_hi[None, None, :])
+         & (table.keys_lo[:, :, None] == g_lo[None, None, :])).any(2)
+    table.occ[m & (table.occ > 0)] = 0
+
+
+def witness_seq_outcomes_plain(table: WitnessTable, q_hi,
+                              q_lo) -> torch.Tensor:
+    """The classless sequential record of MIXED lanes, in batch order
+    (``_record_seq_kernel`` of the JAX package).  Per query, in set
+    ``q_lo & (S-1)``: CONFLICT (3) on a same-key way with ``occ == 1``
+    exactly; else insert at the first free way with ``occ = 1``: INSERT
+    (1), or ``OUTCOME_STACKED`` (5) when the key is held under another
+    class (``occ > 1``: occupied, but no conflict); else FULL (4).  No
+    padding, no valid mask.  Returns [B] outcomes; the table is updated in
+    place.
+
+    Only queries to one set depend on each other, so this resolves them in
+    rounds (the r-th query of every set at once), as the ordered loop
+    would."""
+    S, W = table.occ.shape
+    dev = q_hi.device
+    outcome = torch.zeros(q_hi.shape[0], dtype=torch.int32, device=dev)
+    sets = q_lo.to(torch.int64) & (S - 1)
+    way_iota = torch.arange(W, device=dev)
+    for q, rw in _rounds(sets, torch.ones_like(q_hi)):
+        row_hi, row_lo = table.keys_hi[rw], table.keys_lo[rw]
+        row_occ = table.occ[rw]
+        keym = (row_hi == q_hi[q, None]) & (row_lo == q_lo[q, None])
+        conf = (keym & (row_occ == 1)).any(1)
+        free = row_occ == 0
+        has_free = free.any(1)
+        acc = ~conf & has_free
+        outcome[q] = torch.where(conf, REASON_CONFLICT, torch.where(
+            ~has_free, REASON_FULL, torch.where(
+                (keym & (row_occ > 1)).any(1), OUTCOME_STACKED,
+                REASON_INSERT))).to(torch.int32)
+        sel = ((way_iota[None, :] == free.to(torch.int8).argmax(1)[:, None])
+               & acc[:, None])
+        table.keys_hi[rw] = torch.where(sel, q_hi[q, None], row_hi)
+        table.keys_lo[rw] = torch.where(sel, q_lo[q, None], row_lo)
+        table.occ[rw] = torch.where(sel, torch.ones_like(row_occ), row_occ)
+    return outcome
+
+
+def witness_record_seq_plain(table: WitnessTable, q_hi,
+                             q_lo) -> torch.Tensor:
+    """Plain version of the ``witness_record_seq`` kernel (K11): the accept
+    bit of :func:`witness_seq_outcomes_plain` ([B] int32)."""
+    out = witness_seq_outcomes_plain(table, q_hi, q_lo)
+    return ((out == REASON_INSERT) | (out == OUTCOME_STACKED)).to(torch.int32)

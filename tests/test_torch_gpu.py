@@ -120,3 +120,59 @@ def test_cluster_on_the_card_matches_the_cpu(cuda):
     on_cpu, cnt_cpu = drive("cpu")
     assert on_card == on_cpu
     np.testing.assert_array_equal(cnt_card, cnt_cpu)
+
+
+@pytest.fixture(params=[0, 1])
+def txn_case(request):
+    """K9's chain over a 64x4 table near full, K10 at 64x4 and 256x1 with
+    G of 0, 50 and 300 (more than one staged tile), K11 at 64x4 on an
+    empty and a pre-filled table, and at 16x40 (ways in two chunks)."""
+    rng = np.random.default_rng(request.param)
+    pool = parity.key_pool(rng, 512, 64)
+    planes = parity.table_planes(rng, pool, 64, 4, fill=1.5)
+    probes = parity.txn_chain(rng, pool, planes, 300, max_keys=6,
+                              own_frac=0.3, dup_frac=0.2)
+    gcs = []
+    for S, W in ((64, 4), (256, 1)):
+        gp = parity.gc_planes(rng, parity.key_pool(rng, 4 * S * W, S), S, W)
+        gcs += [(gp, parity.gc_entries(rng, gp, G)) for G in (0, 50, 300)]
+    seqs = []
+    for S, W, fill in ((64, 4, 0.0), (64, 4, 0.5), (16, 40, 0.5)):
+        p = parity.key_pool(rng, 4 * S * W, S)
+        seqs.append((parity.table_planes(rng, p, S, W, fill=fill),
+                     parity.table_batch(rng, p, 1000, W)))
+    return planes, probes, gcs, seqs
+
+
+@pytest.mark.parametrize("kernel", ["txn_probe", "witness_gc",
+                                    "witness_record_seq"])
+def test_txn_kernel_matches_plain_version(cuda, txn_case, kernel):
+    results = parity.check_txn_kernels(*txn_case, device=cuda)
+    torch.cuda.synchronize()
+    got = {r.name: r for r in results}[kernel]
+    assert got.outputs > 0
+    assert got.max_abs_err == 0
+    assert not got.missed, got.coverage
+
+
+def test_txn_stream_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.core import ShardedCluster
+    from repro_torch.sim import TxnWorkload
+
+    def drive(device):
+        c = ShardedCluster(n_shards=4, f=3, witness_backend="device",
+                           seed=5, device=device)
+        s = c.new_client()
+        wl = TxnWorkload(n_shards=4, cross_shard_frac=0.5, keys_per_txn=3,
+                         reads_per_txn=1, seed=9)
+        out = []
+        for _ in range(40):
+            writes, reads = wl.next_txn()
+            o = c.txn(s, writes, reads)
+            out.append((o.status, o.rtts, o.fast_path, o.reads))
+        return out, c.gang.drain_counters()
+
+    on_card, cnt_card = drive(cuda)
+    on_cpu, cnt_cpu = drive("cpu")
+    assert on_card == on_cpu
+    np.testing.assert_array_equal(cnt_card, cnt_cpu)

@@ -19,7 +19,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
-        "import repro_torch.kernels.parity\n"
+        "import repro_torch.kernels.parity, repro_torch.sim\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -172,4 +172,77 @@ def test_kernel_sources_compile_into_a_hashed_ignored_directory():
     assert ignored.returncode == 0
     assert {p.name for p in build.CSRC.glob("*.cu")} == {
         "gang_record.cu", "gang_fastpath.cu", "gang_gc.cu", "gang_groups.cu",
-        "keyhash.cu", "witness_table.cu", "conflict_scan.cu"}
+        "keyhash.cu", "witness_table.cu", "conflict_scan.cu",
+        "witness_txn.cu", "witness_gc.cu", "witness_seq.cu"}
+
+
+def _txn_entries():
+    from repro_torch.kernels import (
+        WitnessTable,
+        txn_probe,
+        witness_gc,
+        witness_record_seq,
+    )
+    from repro_torch.sim import run_batched_throughput, run_txn_crash_scenario
+
+    return {
+        "txn_probe": lambda: txn_probe(WitnessTable.empty(16, 2), [1, 2],
+                                       [3, 4]),
+        "witness_gc": lambda: witness_gc(WitnessTable.empty(16, 2), [1], [3]),
+        "witness_record_seq": lambda: witness_record_seq(
+            WitnessTable.empty(16, 2), [1], [3]),
+        "run_txn_crash_scenario": lambda: run_txn_crash_scenario(
+            n_shards=2, n_txns=4, witness_backend="device"),
+        "run_batched_throughput": lambda: run_batched_throughput(
+            n_shards=2, batch_size=8, n_batches=1, witness_backend="device"),
+    }
+
+
+@pytest.mark.parametrize("name", ["txn_probe", "witness_gc",
+                                  "witness_record_seq",
+                                  "run_txn_crash_scenario",
+                                  "run_batched_throughput"])
+def test_txn_entry_runs_on_the_card_by_default(name):
+    """The three table ops on a table made on the default device, and the
+    sim's entry points with the device backend, launch kernels on the card;
+    without one they raise."""
+    from repro_torch.kernels import ops
+
+    call = _txn_entries()[name]
+    if torch.cuda.is_available():
+        before = sum(k.launches for k in ops.KERNELS)
+        call()
+        assert sum(k.launches for k in ops.KERNELS) > before
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
+
+
+def test_txn_cuda_launchers_refuse_cpu_tensors():
+    from repro_torch.kernels import WitnessTable, ops
+
+    table = WitnessTable.empty(16, 2, device="cpu")
+    with pytest.raises(ValueError, match="CUDA launcher"):
+        ops.txn_probe_cuda(table, *ops.txn_probe_operands(table, [1], [2]))
+    with pytest.raises(ValueError, match="CUDA launcher"):
+        ops.witness_gc_cuda(table, *ops.table_gc_operands(table, [1], [2]))
+    with pytest.raises(ValueError, match="CUDA launcher"):
+        ops.witness_record_seq_cuda(table,
+                                    *ops.seq_operands(table, [1], [2]))
+
+
+def test_txn_ops_refuse_devices_they_have_no_kernel_for():
+    from repro_torch.kernels import (
+        WitnessTable,
+        txn_probe,
+        witness_gc,
+        witness_record_seq,
+    )
+
+    table = WitnessTable(*(torch.zeros((16, 2), dtype=torch.int32,
+                                       device="meta") for _ in range(3)))
+    for call in (lambda: txn_probe(table, [1], [2]),
+                 lambda: witness_gc(table, [1], [2]),
+                 lambda: witness_record_seq(table, [1], [2])):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            call()
