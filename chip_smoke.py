@@ -13,6 +13,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    rings of 1024 slots, f = 3.  Each of the four kernels runs on the same
    CUDA tensors as its plain PyTorch version; every output, all six table
    planes, the rings and the counter plane must agree bit for bit.
+   gang_fastpath (K3) also meets the corners of its block-per-shard design
+   at B = 1000, as the op pads it and as given: every op in one shard,
+   shards with no op, rings filled to count + appends = CAP and wrapping
+   past CAP, INCR over INCR beside SET over SET on hot keys; and B = 3000
+   all in one shard with rings of 4096 so filled, which the kernel takes in
+   chunks (its list of 1024 ops and its staged table of 1024 ring entries).
 2. The slice end to end: ``ShardedCluster(n_shards=64, f=3,
    geometry=WitnessGeometry(1024, 4), sync_batch=50,
    witness_backend="device")`` on the card, driven by the update half of
@@ -42,7 +48,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    padding), kernel and plain chains in lockstep; witness_gc (K10) at
    1024 x 4 and 4096 x 1 with G in {0, 50, 64, 1024}; witness_record_seq
    (K11) at 1024 x 4 with B in {64, 512, 4096}, on an empty table and on
-   one K6 filled with mixed classes.
+   one K6 filled with mixed classes.  K7 also meets the corners of its
+   set-owning design at B = 1000, as padded and as given: no window (U =
+   0), 777 entries with repeated keys of other classes at 256 x 1 and
+   128 x 8, and 3072 entries (three shared-memory tables) at 16 x 2; and
+   B = 4000 at 1 x 4 against 1024 entries and at 4 x 2 against 3072, where
+   each block takes its queries in chunks of its list of 1024.
 3. Durability: the masters of 4 shards crash half-way through phase 2; at
    the end every acknowledged key is read back and compared with a model of
    the acknowledged writes.
@@ -84,7 +95,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    the fused batches' wall time, the device's idle share during one more
    fused batch, and the host's self time by source file in another.  K1
    and K6-K8 are timed the same way at phase 5's shapes, K9-K11 at phase
-   6's.
+   6's.  For the two kernels redesigned as one launch, the kernels each
+   call launches under the profiler (fastpath_record_scan: its own kernel
+   only; gang_fastpath: its own kernel and what K2's record stage launches
+   alone) and gang_fastpath's own launch's device time apart from that
+   stage.  Device times count each kernel per launch the trace caught.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``;
 the line before them names the card and its power limit.  Details also go
@@ -157,9 +172,16 @@ def phase_parity(np, parity, card, device, sync):
     gc = parity.gc_batch(rng, planes, N_SETS, 600, 256)
     fp = parity.fastpath_batch(rng, pool, BATCH, NS, CAP, F, L, 256, 256)
     check((fp["tail_slot"] + fp["count"] > CAP).any(), "no ring span wraps")
+    corners = parity.fastpath_corners(rng, 1000, NS, CAP, F, L, 256, 256)
     results = parity.check_kernels(planes, N_SETS, rec, grp, gc, fp, F,
-                                   device=device)
+                                   device=device, fp_corners=corners)
     sync()
+    say(card, "parity gang_fastpath corners (B = 1000, as padded and as "
+              "given): every op in shard 63; 32 shards with no op and the "
+              "other rings filled to count + appends = CAP; every ring so "
+              "filled, with hot INCR over INCR and SET over SET; B = 3000 "
+              "all in shard 63, rings of 4096 so filled (the shard's list "
+              "and live span taken in chunks)")
     for r in results:
         say(card, f"parity {r.name}: {r.outputs} integers, "
                   f"max_abs_err {r.max_abs_err}, outcomes by value "
@@ -219,9 +241,17 @@ def phase_table_parity(np, parity, card, device, sync, key_lanes):
                               rng, pool, TABLE_BATCH, WINDOW, W, N_SHARDS)))
     scans = [parity.scan_batch(rng, pool, TABLE_BATCH, WINDOW),
              parity.scan_batch(rng, pool, 1000, 777)]
+    fastpaths += parity.table_fastpath_corners(
+        np.random.default_rng(SEED + 10), 1000, N_SHARDS, 3 * WINDOW)
     results = parity.check_table_kernels(keys, records, fastpaths, scans,
                                          device=device)
     sync()
+    say(card, f"parity fastpath_record_scan corners (B = 1000, as padded "
+              f"and as given): no window at 1024x4, 777 entries with "
+              f"repeated keys at 256x1 and 128x8, {3 * WINDOW} (three "
+              f"shared-memory tables) at 16x2; B = 4000 (each block's "
+              f"queries taken in chunks) at 1x4 against 1024 entries and "
+              f"at 4x2 against {3 * WINDOW}")
     for r in results:
         say(card, f"parity {r.name}: {r.outputs} integers, "
                   f"max_abs_err {r.max_abs_err}, outcomes by code "
@@ -1031,22 +1061,22 @@ def _device_us(prof, only=None):
 
 
 def _device_ms(torch, fn, iters=20, before=None, only=None):
-    """Device time of one call, from a profiler trace of ``iters`` calls
-    back to back (state not restored, so later calls meet their own
-    records).  ``before`` runs ahead of each call (e.g. an L2 flush) and
-    ``only`` keeps the kernels whose name holds it."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call, from a trace of ``iters`` calls back to
+    back (state not restored, so later calls meet their own records).
+    A trace taken late in this long run can miss some of its launches, so
+    each kernel (or copy) counts its time per launch the trace caught,
+    times its launches per call (caught / iters, rounded, at least 1: the
+    calls are identical).  ``only`` keeps the kernels whose name holds
+    it."""
+    from repro_torch.kernels.parity import trace
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if before is not None:
-                before()
-            fn()
-        torch.cuda.synchronize()
-    us = _device_us(prof, only)
-    return None if us is None else us / 1e3 / iters
+    total = 0.0
+    for e in trace(fn, iters, before).key_averages():
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us and e.count and (only is None or only in e.key):
+            total += us / e.count * max(1, round(e.count / iters))
+    return total / 1e3 or None
 
 
 def _bound_ms(nbytes, nops):
@@ -1086,7 +1116,8 @@ def phase_times(np, torch, dev_cluster, card, device):
     """Each kernel at phase 2's shapes.  Bounds count the bytes this run's
     inputs need: operands without padding or valid flags, the five planes
     a probe reads for each probed row, the table words and counters the
-    call changed, and one matrix row per class present."""
+    call changed, and one matrix row per class present; operations count
+    a join for each key lookup (``_join_ops``), not every pair."""
     from repro_torch.kernels import gang_to_numpy, ops as kops, parity, ref
 
     dev = torch.device(device)
@@ -1100,8 +1131,8 @@ def phase_times(np, torch, dev_cluster, card, device):
     table = table0.clone()
     fp = parity.fastpath_batch(rng, pool, BATCH, N_SHARDS, 1024, F, L, 256,
                                256)
-    rings0 = ref.ring_from_numpy(fp.pop("ring_hi"), fp.pop("ring_lo"),
-                                 fp.pop("ring_cls"), dev)
+    ring_np = [fp.pop(k) for k in ("ring_hi", "ring_lo", "ring_cls")]
+    rings0 = ref.ring_from_numpy(*ring_np, dev)
     rings = [r.clone() for r in rings0]
 
     def restore():
@@ -1178,11 +1209,53 @@ def phase_times(np, torch, dev_cluster, card, device):
               + BATCH * (F + 4) * 4      # reasons, conflicts, shard, q_hi/lo
               + _probe_bytes(np, rows_e, W)
               + once(lambda: run_fp(kops.gang_fastpath_cuda)))
-    scanned = int(fp["count"][shard].sum())     # ring entries the ops scan
-    nops = BATCH * (BATCH - 1) // 2 * 6 + scanned * 6 + BATCH * F * W * 10
-    out["gang_fastpath"] = timed(
+    # Operations: per shard, a join of its ops against its live span and
+    # one of its ops against each other (same key), then the record.
+    key = (qh.astype(np.uint64) << np.uint64(32)) | ql.astype(np.uint64)
+    nops = BATCH * F * W * 10
+    for sid in np.unique(shard):
+        mine = key[shard == sid]
+        c = (fp["tail_slot"][sid] + np.arange(fp["count"][sid])) % 1024
+        span = ((ring_np[0][sid, c].astype(np.uint64) << np.uint64(32))
+                | ring_np[1][sid, c].astype(np.uint64))
+        sk, n_span = np.unique(span, return_counts=True)
+        at = np.minimum(np.searchsorted(sk, mine), max(sk.size - 1, 0))
+        ring_pairs = int(n_span[at][sk[at] == mine].sum()) if sk.size else 0
+        _, n_op = np.unique(mine, return_counts=True)
+        nops += (_join_ops(mine.size, span.size, ring_pairs)
+                 + _join_ops(mine.size, mine.size,
+                             int((n_op * (n_op - 1) // 2).sum())))
+    out["gang_fastpath"] = t = timed(
         lambda: run_fp(kops.gang_fastpath_cuda),
         lambda: run_fp(ref.gang_fastpath_plain), nbytes, nops)
+    # Its own launch (hash, route, ring scan, in-batch check, append) apart
+    # from K2's record stage and that stage's sort.
+    restore()
+    t["stage_device_ms"] = _device_ms(
+        torch, lambda: run_fp(kops.gang_fastpath_cuda),
+        only="gang_fastpath_kernel")
+    # Launches per call: the whole op against K2's record stage alone.  A
+    # trace may miss launches, never add one: one launch a call reads in
+    # (0, 1], and a second would read above 1 unless half were missed.
+    restore()
+    per_call = parity.launches_per_call(
+        lambda: run_fp(kops.gang_fastpath_cuda))
+    restore()
+    record = parity.launches_per_call(stage)
+    own = sorted(set(per_call) - set(record))
+    check(len(own) == 1 and "gang_fastpath_kernel" in own[0]
+          and 0 < per_call[own[0]] <= 1
+          and set(record) <= set(per_call),
+          f"gang_fastpath's stages before the record are not one launch: "
+          f"{per_call} against the record stage's {record}")
+    t["launches_per_call"] = per_call
+    n_rec = sum(max(1, round(n)) for n in record.values())
+    say(card, f"gang_fastpath launches per call: {per_call[own[0]]:g} of its "
+              f"own kernel (the trace caught {per_call[own[0]] * 20:.0f} "
+              f"launches in 20 calls), then the {n_rec} that K2's record "
+              f"stage launches alone (caught as {sum(record.values()):g} "
+              f"per call, here "
+              f"{sum(per_call.values()) - per_call[own[0]]:g}); no other")
 
     # K4: one sync round's gc_many: entries at a shard's f aged lanes.
     gc = parity.gc_batch(rng, planes, N_SETS, 150, 256)
@@ -1226,6 +1299,10 @@ def phase_times(np, torch, dev_cluster, card, device):
     for name, t in out.items():
         dms = ("not measured" if t["device_ms"] is None
                else f"{t['device_ms']:.4f} ms")
+        if "stage_device_ms" in t:
+            dms += ("; its own launch not measured"
+                    if t["stage_device_ms"] is None else
+                    f"; its own launch {t['stage_device_ms']:.4f} ms")
         say(card, f"time {name}: {t['ms']:.4f} ms per call (CUDA events), "
                   f"device time {dms} (profiler), plain "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.6f} ms "
@@ -1331,6 +1408,18 @@ def phase_table_times(np, torch, card, device, key_lanes):
         lambda: kops.fastpath_record_scan_cuda(table, *fargs),
         lambda: ref.fastpath_record_scan_plain(table, *fargs), restore,
         nbytes, nops + TABLE_BATCH * (29 + TABLE_WAYS * 6))
+    restore()
+    per_call = parity.launches_per_call(
+        lambda: kops.fastpath_record_scan_cuda(table, *fargs))
+    name, n_own = (next(iter(per_call.items())) if len(per_call) == 1
+                   else ("", 0))
+    check("fastpath_batch_kernel" in name and 0 < n_own <= 1,
+          f"fastpath_record_scan is not one launch of its own kernel: "
+          f"{per_call}")
+    out["fastpath_record_scan"]["launches_per_call"] = per_call
+    say(card, f"fastpath_record_scan launches per call: {n_own:g} of its own "
+              f"kernel and no other (the trace caught {n_own * 20:.0f} "
+              f"launches in 20 calls)")
 
     # K8: 4096 queries against a 1024-entry window.
     sc = parity.scan_batch(rng, pool, TABLE_BATCH, WINDOW)

@@ -1,13 +1,15 @@
-// The window scan of K8 (conflict_scan.cu), shared with K7's prep launch
-// (witness_table.cu): does a query's key meet a valid entry of the unsynced
-// window whose class conflicts with the query's?
+// The window scan of K8 (conflict_scan.cu): does a query's key meet a
+// valid entry of the unsynced window whose class conflicts with the
+// query's?
 //
 // Replaces the compare-reduce of src/repro/kernels/conflict_scan.py
-// _conflict_kernel and the scan half of witness_record.py _make_fused_kernel.
-// The TPU streamed (256 x 512) tiles of the [B, U] compare cube through VMEM
-// and ORed across the U axis of the grid.  Here one thread holds one query,
-// and the block stages the window through shared memory a tile at a time
-// (12 KB); every thread then reads each staged entry as a broadcast.
+// _conflict_kernel.  The TPU streamed (256 x 512) tiles of the [B, U]
+// compare cube through VMEM and ORed across the U axis of the grid.  Here
+// one thread holds one query, and the block stages the window through
+// shared memory a tile at a time (12 KB); every thread then reads each
+// staged entry as a broadcast.  K7 (fastpath_batch.cu) answers the same
+// question with one probe of a shared-memory KeyMaskTable
+// (smem_join.cuh), the join this scan can take in its own redesign.
 #pragma once
 
 #include <cstdint>

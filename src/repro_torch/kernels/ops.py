@@ -81,8 +81,8 @@ GANG_RECORD = CudaKernel(
 GANG_FASTPATH = CudaKernel(
     "gang_fastpath", _CSRC + "gang_fastpath.cu",
     "src/repro/kernels/ops.py:787",
-    {"gang_fastpath_route": [I, P, P, P, P, I, P, I, I, I, P, P, P, P, P],
-     "gang_fastpath_window": [I] + [P] * 7 + [I] + [P] * 3 + [I] + [P] * 5})
+    {"gang_fastpath_launch": [I] + [P] * 6 + [I, P, I, I, I, P, I] + [P] * 3
+     + [I, I] + [P] * 9})
 GANG_GC = CudaKernel(
     "gang_gc", _CSRC + "gang_gc.cu",
     "src/repro/kernels/witness_record.py:943",
@@ -92,19 +92,19 @@ GANG_GROUPS = CudaKernel(
     "src/repro/kernels/witness_record.py:846",
     {"gang_groups_launch": [I, I] + [P] * 9 + [I] * 3 + [P] * 11})
 
-_RUNS = [I] + [P] * 6 + [I] * 3 + [P] * 5
 KEYHASH = CudaKernel(
     "keyhash", _CSRC + "keyhash.cu", "src/repro/kernels/keyhash.py:48",
     {"keyhash_launch": [I, P, P, P, P, P, I, P, P]})
 WITNESS_RECORD = CudaKernel(
     "witness_record", _CSRC + "witness_table.cu",
     "src/repro/kernels/witness_record.py:258",
-    {"witness_sets": [I, P, P, I, P, P], "witness_record_runs": _RUNS})
+    {"witness_sets": [I, P, P, I, P, P],
+     "witness_record_runs": [I] + [P] * 6 + [I] * 3 + [P] * 5})
 FASTPATH_RECORD_SCAN = CudaKernel(
-    "fastpath_record_scan", _CSRC + "witness_table.cu",
+    "fastpath_record_scan", _CSRC + "fastpath_batch.cu",
     "src/repro/kernels/witness_record.py:307",
-    {"fastpath_prep": [I] + [P] * 5 + [I, P, I] + [P] * 3 + [I, I] + [P] * 6,
-     "witness_record_runs": _RUNS})
+    {"fastpath_batch_launch": [I] + [P] * 5 + [I, P, I] + [P] * 3
+     + [I, I, I] + [P] * 9})
 CONFLICT_SCAN = CudaKernel(
     "conflict_scan", _CSRC + "conflict_scan.cu",
     "src/repro/kernels/conflict_scan.py:71",
@@ -257,12 +257,19 @@ def gang_gc_cuda(table: GangTable, n_sets: int, g_hi, g_lo, g_rh, g_rl,
     return cleared
 
 
+# K3 and K7 keep an item's batch position below bit 29 of a word whose
+# upper bits are flags (smem_join.cuh).
+_MAX_BATCH = 1 << 29
+
+
 def gang_fastpath_cuda(table: GangTable, n_sets: int, f: int,
                        k_hi, k_lo, k_cls, k_valid, r_hi, r_lo, exec_pred,
                        slot_map, lane_map, ring_hi, ring_lo, ring_cls,
                        tail, count, counters=None):
-    """K3 (then K2's record stage) on the card; see
-    ``ref.gang_fastpath_plain`` for the contract."""
+    """K3 (one launch, then K2's record stage) on the card; see
+    ``ref.gang_fastpath_plain`` for the contract.  The slot map's shards
+    must lie in [0, NS) and count + appends fit CAP, as
+    ``gang_fastpath_batch`` checks on the host."""
     dev = k_hi.device
     _check_cuda(dev, *table, k_hi, k_lo, k_cls, k_valid, r_hi, r_lo,
                 exec_pred, slot_map, lane_map, ring_hi, ring_lo, ring_cls,
@@ -270,23 +277,24 @@ def gang_fastpath_cuda(table: GangTable, n_sets: int, f: int,
     B = k_hi.shape[0]
     R = table.occ.shape[0]
     NS, CAP = ring_hi.shape
+    if NS < 1 or B >= _MAX_BATCH:
+        raise ValueError(f"gang_fastpath takes at least one ring and fewer "
+                         f"than {_MAX_BATCH} ops, got {NS} rings and {B} "
+                         f"ops")
     qh = torch.empty_like(k_hi)
     ql = torch.empty_like(k_hi)
     shard = torch.empty_like(k_hi)
     rows_e = torch.empty(B * f, dtype=torch.int32, device=dev)
     conflicts = torch.empty_like(k_hi)
-    new_count = count.clone()
+    new_count = torch.empty_like(count)
     m = _matrix(dev)
-    st = _stream(dev)
     GANG_FASTPATH.call(
-        "gang_fastpath_route", B, _ptr(k_hi), _ptr(k_lo), _ptr(k_valid),
-        _ptr(slot_map), slot_map.shape[0], _ptr(lane_map), f, n_sets, R,
-        _ptr(qh), _ptr(ql), _ptr(shard), _ptr(rows_e), st)
-    GANG_FASTPATH.call(
-        "gang_fastpath_window", B, _ptr(qh), _ptr(ql), _ptr(shard),
-        _ptr(k_cls), _ptr(k_valid), _ptr(exec_pred), _ptr(m), m.numel(),
-        _ptr(ring_hi), _ptr(ring_lo), _ptr(ring_cls), CAP, _ptr(tail),
-        _ptr(count), _ptr(conflicts), _ptr(new_count), st)
+        "gang_fastpath_launch", B, _ptr(k_hi), _ptr(k_lo), _ptr(k_cls),
+        _ptr(k_valid), _ptr(exec_pred), _ptr(slot_map), slot_map.shape[0],
+        _ptr(lane_map), f, n_sets, R, _ptr(m), m.numel(), _ptr(ring_hi),
+        _ptr(ring_lo), _ptr(ring_cls), NS, CAP, _ptr(tail), _ptr(count),
+        _ptr(qh), _ptr(ql), _ptr(shard), _ptr(rows_e), _ptr(conflicts),
+        _ptr(new_count), _stream(dev))
     GANG_FASTPATH.launches += 1
     rsn = _record_runs(table, n_sets, rows_e, f, qh, ql, r_hi, r_lo, k_cls,
                        counters)
@@ -307,51 +315,49 @@ def keyhash_cuda(hi, lo, slot_map=None):
     return qh, ql, shard
 
 
-def _record_table(kernel: CudaKernel, table: WitnessTable, sets, q_hi, q_lo,
-                  q_cls) -> torch.Tensor:
-    """The record stage of K6 and K7: a stable sort by set, then one thread
-    per run of equal sets.  Returns accept bits in batch order."""
-    dev = sets.device
+def witness_record_cuda(table: WitnessTable, q_hi, q_lo, q_cls, q_valid):
+    """K6 on the card; see ``ref.witness_record_plain`` for the contract:
+    a prep launch writes each query's set, a stable sort by set, then one
+    thread per run of equal sets.  Returns accept bits in batch order."""
+    dev = q_hi.device
+    _check_cuda(dev, *table, q_hi, q_lo, q_cls, q_valid)
     S, W = table.occ.shape
+    sets = torch.empty_like(q_hi)
+    st = _stream(dev)
+    WITNESS_RECORD.call("witness_sets", q_hi.shape[0], _ptr(q_lo),
+                        _ptr(q_valid), S, _ptr(sets), st)
     sets_sorted, perm = torch.sort(sets, stable=True)
     accepted = torch.zeros_like(sets)
     m = _matrix(dev)
-    kernel.call("witness_record_runs", sets.shape[0], _ptr(sets_sorted),
-                _ptr(perm), _ptr(q_hi), _ptr(q_lo), _ptr(q_cls), _ptr(m),
-                m.numel(), S, W, *(_ptr(p) for p in table), _ptr(accepted),
-                _stream(dev))
-    kernel.launches += 1
+    WITNESS_RECORD.call("witness_record_runs", sets.shape[0],
+                        _ptr(sets_sorted), _ptr(perm), _ptr(q_hi), _ptr(q_lo),
+                        _ptr(q_cls), _ptr(m), m.numel(), S, W,
+                        *(_ptr(p) for p in table), _ptr(accepted), st)
+    WITNESS_RECORD.launches += 1
     return accepted
-
-
-def witness_record_cuda(table: WitnessTable, q_hi, q_lo, q_cls, q_valid):
-    """K6 on the card; see ``ref.witness_record_plain`` for the contract."""
-    dev = q_hi.device
-    _check_cuda(dev, *table, q_hi, q_lo, q_cls, q_valid)
-    sets = torch.empty_like(q_hi)
-    WITNESS_RECORD.call("witness_sets", q_hi.shape[0], _ptr(q_lo),
-                        _ptr(q_valid), table.occ.shape[0], _ptr(sets),
-                        _stream(dev))
-    return _record_table(WITNESS_RECORD, table, sets, q_hi, q_lo, q_cls)
 
 
 def fastpath_record_scan_cuda(table: WitnessTable, k_hi, k_lo, k_cls,
                               k_valid, slot_map, w_hi, w_lo, w_valid):
-    """K7 on the card; see ``ref.fastpath_record_scan_plain`` for the
-    contract."""
+    """K7 on the card, one launch (no sort); see
+    ``ref.fastpath_record_scan_plain`` for the contract."""
     dev = k_hi.device
     _check_cuda(dev, *table, k_hi, k_lo, k_cls, k_valid, slot_map, w_hi,
                 w_lo, w_valid)
-    qh, ql, shard, sets, conflicts = (torch.empty_like(k_hi)
-                                      for _ in range(5))
+    S, W = table.occ.shape
+    if k_hi.shape[0] >= _MAX_BATCH:
+        raise ValueError(f"fastpath_record_scan takes fewer than "
+                         f"{_MAX_BATCH} queries, got {k_hi.shape[0]}")
+    qh, ql, shard, accepted, conflicts = (torch.empty_like(k_hi)
+                                          for _ in range(5))
     m = _matrix(dev)
     FASTPATH_RECORD_SCAN.call(
-        "fastpath_prep", k_hi.shape[0], _ptr(k_hi), _ptr(k_lo), _ptr(k_cls),
-        _ptr(k_valid), _ptr(slot_map), slot_map.shape[0], _ptr(m), m.numel(),
-        _ptr(w_hi), _ptr(w_lo), _ptr(w_valid), w_hi.shape[0],
-        table.occ.shape[0], _ptr(qh), _ptr(ql), _ptr(shard), _ptr(sets),
-        _ptr(conflicts), _stream(dev))
-    accepted = _record_table(FASTPATH_RECORD_SCAN, table, sets, qh, ql, k_cls)
+        "fastpath_batch_launch", k_hi.shape[0], _ptr(k_hi), _ptr(k_lo),
+        _ptr(k_cls), _ptr(k_valid), _ptr(slot_map), slot_map.shape[0],
+        _ptr(m), m.numel(), _ptr(w_hi), _ptr(w_lo), _ptr(w_valid),
+        w_hi.shape[0], S, W, *(_ptr(p) for p in table), _ptr(qh), _ptr(ql),
+        _ptr(shard), _ptr(accepted), _ptr(conflicts), _stream(dev))
+    FASTPATH_RECORD_SCAN.launches += 1
     return accepted, conflicts, shard, qh, ql
 
 

@@ -224,23 +224,45 @@ def gc_batch(rng: np.random.Generator, planes, n_sets: int, G: int,
 
 def fastpath_batch(rng: np.random.Generator, pool: KeyPool, B: int, NS: int,
                    CAP: int, f: int, n_lanes: int, n_slots: int,
-                   n_rpcs: int) -> Dict[str, np.ndarray]:
+                   n_rpcs: int, *, shards=None, exact_fit: bool = False,
+                   hot: int = 0) -> Dict[str, np.ndarray]:
     """One cluster batch and the rings it meets: [B] ops over pool keys
     (repeats make in-batch conflicts), a random slot map, a lane map, and
     per-shard rings whose live spans start anywhere (wrapping past CAP) and
-    hold pool keys, with room left for this batch's appends."""
+    hold pool keys, with room left for this batch's appends.
+
+    Corners: ``shards`` limits the slot map to those shards (one shard
+    takes every op; the others get none); ``exact_fit`` fills each ring to
+    ``count + appends = CAP``; ``hot`` ops repeat two keys, executing, the
+    first half as INCR (which commutes with itself) and the rest as SET
+    (which does not)."""
     k = rng.integers(0, len(pool.hi) // 4 + 1, B)
-    key_hi, key_lo = pool.hi[k], pool.lo[k]
     rpc_lo = (rng.permutation(n_rpcs + B)[:B]).astype(np.uint32)
     exec_pred = (rng.random(B) < 0.9).astype(np.int32)
-    slot_map = rng.integers(0, NS, n_slots).astype(np.int32)
+    if shards is None:
+        slot_map = rng.integers(0, NS, n_slots).astype(np.int32)
+    else:
+        shards = np.asarray(shards, np.int32)
+        slot_map = shards[rng.integers(0, shards.size, n_slots)]
+    if hot:
+        at = rng.choice(B, hot, replace=False)
+        kind = np.arange(hot) >= hot // 2          # 0: INCR, 1: SET
+        k[at] = kind                               # pool keys 0 and 1
+        rpc_lo[at] = (4 * (n_rpcs + B + at) + np.where(kind, 0, 1)).astype(
+            np.uint32)                             # CLASSES[1] INCR, [0] SET
+        exec_pred[at] = 1
+    key_hi, key_lo = pool.hi[k], pool.lo[k]
     lane_map = (np.arange(NS * f, dtype=np.int32) % n_lanes).reshape(NS, f)
     qh, ql = pool.q_hi[k], pool.q_lo[k]
     shard = slot_map[ql % np.uint32(n_slots)]
     appends = np.bincount(shard[exec_pred == 1], minlength=NS)
     tail = rng.integers(0, CAP, NS).astype(np.int32)
     tail[: NS // 2] = CAP - rng.integers(1, 8, NS // 2)     # wrap past CAP
-    count = np.minimum(rng.integers(0, CAP, NS), CAP - appends).astype(np.int32)
+    if exact_fit:
+        count = (CAP - appends).astype(np.int32)
+    else:
+        count = np.minimum(rng.integers(0, CAP, NS),
+                           CAP - appends).astype(np.int32)
     ring_k = rng.integers(0, len(pool.hi) // 4 + 1, (NS, CAP))
     ring_hi = pool.q_hi[ring_k]
     ring_lo = pool.q_lo[ring_k]
@@ -250,6 +272,34 @@ def fastpath_batch(rng: np.random.Generator, pool: KeyPool, B: int, NS: int,
                 lane_map=lane_map, tail_slot=tail, count=count,
                 key_cls=cls_of_rpc(rpc_lo), ring_hi=ring_hi, ring_lo=ring_lo,
                 ring_cls=ring_cls)
+
+
+def fastpath_corners(rng: np.random.Generator, B: int, NS: int, CAP: int,
+                     f: int, n_lanes: int, n_slots: int,
+                     n_rpcs: int) -> List[Dict[str, np.ndarray]]:
+    """The corners of K3's block-per-shard design, each a
+    :func:`fastpath_batch` (pick B not a multiple of 32): every op in one
+    shard (not shard 0); half the shards with no op, the rings of the
+    others filled to ``count + appends = CAP``; every shard filled so, with
+    hot keys that commute (INCR over INCR) beside hot keys that do not (SET
+    over SET); and every op of a batch of 3 x B in one shard whose ring of
+    4 x CAP is filled so (at B = 1000 the shard's list outgrows one block
+    buffer of 1024 ops and its live span one staged table, so the kernel
+    takes both in chunks).  Keys come from a pool of 16 x CAP, so full
+    rings still miss most ops."""
+    pool = key_pool(rng, 16 * CAP, 1)
+    hot = min(64, B // 4)
+    rest = (f, n_lanes, n_slots, n_rpcs)
+    out = [fastpath_batch(rng, pool, B, NS, CAP, *rest, shards=[NS - 1],
+                          hot=hot),
+           fastpath_batch(rng, pool, B, NS, CAP, *rest,
+                          shards=range(0, NS, 2), exact_fit=True),
+           fastpath_batch(rng, pool, B, NS, CAP, *rest, exact_fit=True,
+                          hot=hot)]
+    big = key_pool(rng, 64 * CAP, 1)
+    out.append(fastpath_batch(rng, big, 3 * B, NS, 4 * CAP, *rest,
+                              shards=[NS - 1], exact_fit=True, hot=hot))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -283,11 +333,43 @@ def _diff(pairs) -> Tuple[int, int]:
     return err, n
 
 
+def trace(fn, iters: int, before=None):
+    """A ``torch.profiler`` trace (CUDA activity only) of ``iters`` calls of
+    ``fn`` back to back, after one untraced call; ``before`` runs ahead of
+    each call (e.g. an L2 flush)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def launches_per_call(fn, iters: int = 20) -> Dict[str, float]:
+    """Kernel launches of one call of ``fn`` by kernel name (copies and
+    fills left out), as caught in a :func:`trace` of ``iters`` calls (a
+    share under 1 is launches the trace missed)."""
+    counts: Dict[str, float] = {}
+    for e in trace(fn, iters).key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith(("Memcpy", "Memset"))):
+            counts[e.key] = counts.get(e.key, 0) + e.count / iters
+    return counts
+
+
 def check_kernels(planes, n_sets: int, rec: dict, grp: dict, gc: dict,
-                  fp: dict, f: int, device="cuda") -> List[Parity]:
+                  fp: dict, f: int, device="cuda",
+                  fp_corners=()) -> List[Parity]:
     """Run each CUDA kernel and its plain version on identical copies of
     the same device tensors; compare every output, every table plane, the
-    rings and the counter plane.  Returns one :class:`Parity` per kernel."""
+    rings and the counter plane.  ``fp_corners`` (:func:`fastpath_corners`)
+    are more K3 cases, each run as the op pads it and trimmed to its real
+    batch.  Returns one :class:`Parity` per kernel."""
     device = torch.device(device)
     base = ref.gang_from_numpy(planes, device)
     L = base.occ.shape[0] // n_sets
@@ -327,22 +409,31 @@ def check_kernels(planes, n_sets: int, rec: dict, grp: dict, gc: dict,
             cov = cov + prev.coverage
         out.append(Parity("gang_gc", err, n, cov))
 
-    (ta, ca), (tb, cb) = twins()
-    fp = dict(fp)
-    rings = ref.ring_from_numpy(fp.pop("ring_hi"), fp.pop("ring_lo"),
-                                fp.pop("ring_cls"), device)
-    ring_a = [r.clone() for r in rings]
-    ring_b = [r.clone() for r in rings]
-    args = ops.fastpath_operands(base, n_sets, **fp)
-    k_hi, k_lo, k_cls, k_valid, r_hi, r_lo, ex, sm, lm, tail, count = args
-    ra = ops.gang_fastpath_cuda(ta, n_sets, f, k_hi, k_lo, k_cls, k_valid,
-                                r_hi, r_lo, ex, sm, lm, *ring_a, tail, count, ca)
-    rb = ref.gang_fastpath_plain(tb, n_sets, f, k_hi, k_lo, k_cls, k_valid,
-                                 r_hi, r_lo, ex, sm, lm, *ring_b, tail, count,
-                                 cb)
-    out.append(Parity("gang_fastpath", *_diff(
-        list(zip(ra, rb)) + list(zip(ta, tb)) + list(zip(ring_a, ring_b))
-        + [(ca, cb)]), _coverage(ra[0][k_valid.repeat_interleave(f) == 1])))
+    parts = []
+    cases = [(fp, None)]
+    for c in fp_corners:
+        cases += [(c, None), (c, len(c["key_hi"]))]
+    for case, trim in cases:
+        (ta, ca), (tb, cb) = twins()
+        case = dict(case)
+        rings = ref.ring_from_numpy(case.pop("ring_hi"), case.pop("ring_lo"),
+                                    case.pop("ring_cls"), device)
+        ring_a = [r.clone() for r in rings]
+        ring_b = [r.clone() for r in rings]
+        args = ops.fastpath_operands(base, n_sets, **case)
+        if trim is not None:         # the real batch, without the padding
+            args = [a[:trim] for a in args[:7]] + list(args[7:])
+        k_hi, k_lo, k_cls, k_valid, r_hi, r_lo, ex, sm, lm, tail, count = args
+        ra = ops.gang_fastpath_cuda(ta, n_sets, f, k_hi, k_lo, k_cls, k_valid,
+                                    r_hi, r_lo, ex, sm, lm, *ring_a, tail,
+                                    count, ca)
+        rb = ref.gang_fastpath_plain(tb, n_sets, f, k_hi, k_lo, k_cls,
+                                     k_valid, r_hi, r_lo, ex, sm, lm, *ring_b,
+                                     tail, count, cb)
+        parts.append((*_diff(list(zip(ra, rb)) + list(zip(ta, tb))
+                             + list(zip(ring_a, ring_b)) + [(ca, cb)]),
+                      _coverage(ra[0][k_valid.repeat_interleave(f) == 1])))
+    out.append(_merge("gang_fastpath", parts))
     return out
 
 
@@ -409,33 +500,61 @@ def table_batch(rng: np.random.Generator, pool: KeyPool, B: int,
                 q_cls=CLASSES[rng.integers(0, len(CLASSES), B)])
 
 
-def window(rng: np.random.Generator, pool: KeyPool, U: int):
+def window(rng: np.random.Generator, pool: KeyPool, U: int,
+           dup_frac: float = 0.0):
     """A U-entry unsynced window of MIXED lanes of the first half of the
     pool (which batches repeat; distinct keys while the half lasts, so a
     same-key query meets one class), with ``w_valid`` 1 + class over
-    ``CLASSES`` and 10% invalid entries."""
+    ``CLASSES`` and 10% invalid entries.  With ``dup_frac``, that share of
+    the entries repeats the key of an earlier entry under its own class."""
     half = len(pool.hi) // 2
     k = rng.choice(half, U, replace=U > half)
     valid = 1 + CLASSES[rng.integers(0, len(CLASSES), U)]
     valid[rng.random(U) < 0.1] = 0
+    if dup_frac:
+        rep = np.flatnonzero(rng.random(U) < dup_frac)
+        rep = rep[rep > 0]
+        k[rep] = k[(rng.random(rep.size) * rep).astype(np.int64)]
     return pool.q_hi[k], pool.q_lo[k], valid.astype(np.int32)
 
 
 def table_fastpath_batch(rng: np.random.Generator, pool: KeyPool, B: int,
                          U: int, n_ways: int, n_shards: int,
-                         n_slots: int = 256) -> Dict[str, np.ndarray]:
+                         n_slots: int = 256,
+                         dup_frac: float = 0.0) -> Dict[str, np.ndarray]:
     """[B] ``fastpath_batch`` ops (RAW lanes, classes over ``CLASSES``),
     half of them keys of the window's half of the pool, a U-entry window
-    and a random slot map over ``n_shards``."""
+    (``dup_frac``: see :func:`window`; U = 0 gives an empty one) and a
+    random slot map over ``n_shards``."""
     key_hi, key_lo = _pool_lanes(rng, pool, B, 2 * n_ways + 1, False)
     hot = rng.random(B) < 0.5
     k = rng.integers(0, len(pool.hi) // 2, int(hot.sum()))
     key_hi[hot], key_lo[hot] = pool.hi[k], pool.lo[k]
-    w_hi, w_lo, w_valid = window(rng, pool, U)
+    w_hi, w_lo, w_valid = window(rng, pool, U, dup_frac)
     return dict(key_hi=key_hi, key_lo=key_lo,
                 key_cls=CLASSES[rng.integers(0, len(CLASSES), B)],
                 window_hi=w_hi, window_lo=w_lo, window_valid=w_valid,
                 slot_map=rng.integers(0, n_shards, n_slots).astype(np.int32))
+
+
+def table_fastpath_corners(rng: np.random.Generator, B: int, n_shards: int,
+                           big_window: int):
+    """(planes, batch) cases at the corners of K7's set-owning design, B
+    not a power of two (the ops pad it): an empty window on a 1024 x 4
+    table; 777 entries with repeated keys of other classes on 256 x 1 (one
+    way) and on 128 x 8; ``big_window`` entries (more than one shared-memory
+    table) on 16 x 2.  Then batches of 4 x B on tables of one and four sets,
+    against a window of 1024 entries (one staged table) and of
+    ``big_window``: at B = 1000 each block owns more than its buffer of
+    1024 queries holds, so it takes them in chunks."""
+    out = []
+    for S, W, U, b in ((1024, 4, 0, B), (256, 1, 777, B), (128, 8, 777, B),
+                       (16, 2, big_window, B), (1, 4, 1024, 4 * B),
+                       (4, 2, big_window, 4 * B)):
+        pool = key_pool(rng, 4 * S if b == B else 4096, S)
+        out.append((table_planes(rng, pool, S, W), table_fastpath_batch(
+            rng, pool, b, U, W, n_shards, dup_frac=0.2)))
+    return out
 
 
 def scan_batch(rng: np.random.Generator, pool: KeyPool, B: int,
@@ -477,7 +596,8 @@ def check_table_kernels(keys: dict, records, fastpaths, scans,
     a ``slot_map`` (K1 runs with and without the route); ``records`` and
     ``fastpaths`` are lists of (table planes, batch) cases of
     ``witness_record`` (K6) and ``fastpath_batch`` (K7), ``scans`` a list
-    of ``conflict_scan`` (K8) cases.  Returns one :class:`Parity` per
+    of ``conflict_scan`` (K8) cases.  Each K7 case runs as the op pads it
+    and trimmed to its real batch and window (U may be 0).  Returns one :class:`Parity` per
     kernel, over all its cases."""
     device = torch.device(device)
     hi, lo, sm = ops._to_device(device, keys["hi"], keys["lo"],
@@ -505,18 +625,24 @@ def check_table_kernels(keys: dict, records, fastpaths, scans,
     parts = []
     for planes, fp in fastpaths:
         base = ref.witness_table_from_numpy(planes, device)
-        args = ops.table_fastpath_operands(base, **fp)
-        k_cls, k_valid, w_hi, w_lo, w_valid = (args[2], args[3], *args[5:])
-        ta, tb, tc = base.clone(), base.clone(), base.clone()
-        ra = ops.fastpath_record_scan_cuda(ta, *args)
-        rb = ref.fastpath_record_scan_plain(tb, *args)
-        qh, ql = rb[3], rb[4]
-        outcome = ref.witness_outcomes_plain(tc, qh, ql, k_cls, k_valid)
-        codes = scan_codes(rb[1], w_hi, w_lo, w_valid, qh, ql)
-        ok = k_valid == 1
-        parts.append((*_diff(list(zip(ra, rb)) + list(zip(ta, tb))),
-                      _coverage(outcome[ok], N_CODES)
-                      + _coverage(codes[ok], N_CODES)))
+        padded = ops.table_fastpath_operands(base, **fp)
+        B = len(fp["key_hi"])
+        U = 0 if fp.get("window_hi") is None else len(fp["window_hi"])
+        trimmed = ([a[:B] for a in padded[:4]] + [padded[4]]
+                   + [a[:U] for a in padded[5:]])
+        for args in (padded, trimmed):   # as the op pads them, and the real
+            k_cls, k_valid, w_hi, w_lo, w_valid = (args[2], args[3],
+                                                   *args[5:])
+            ta, tb, tc = base.clone(), base.clone(), base.clone()
+            ra = ops.fastpath_record_scan_cuda(ta, *args)
+            rb = ref.fastpath_record_scan_plain(tb, *args)
+            qh, ql = rb[3], rb[4]
+            outcome = ref.witness_outcomes_plain(tc, qh, ql, k_cls, k_valid)
+            codes = scan_codes(rb[1], w_hi, w_lo, w_valid, qh, ql)
+            ok = k_valid == 1
+            parts.append((*_diff(list(zip(ra, rb)) + list(zip(ta, tb))),
+                          _coverage(outcome[ok], N_CODES)
+                          + _coverage(codes[ok], N_CODES)))
     out.append(_merge("fastpath_record_scan", parts))
 
     parts = []
@@ -720,8 +846,9 @@ __all__ = ["BRANCHES", "CLASSES", "GC_EMPTY", "GC_HIT", "GC_MISS",
            "SCAN_COMMUTES", "SCAN_HIT", "TXN_DUP_KEY", "TXN_OWN_PASS",
            "TXN_PADDED", "TXN_SAME_SET", "check_kernels",
            "check_table_kernels", "check_txn_kernels", "cls_of_rpc",
-           "fastpath_batch", "gang_planes", "gc_batch", "gc_codes",
-           "gc_entries", "gc_planes", "group_batch", "held", "key_pool",
-           "reason_coverage", "record_batch", "scan_batch", "scan_codes",
-           "table_batch", "table_fastpath_batch", "table_planes",
-           "txn_chain", "txn_codes", "window"]
+           "fastpath_batch", "fastpath_corners", "gang_planes", "gc_batch",
+           "gc_codes", "gc_entries", "gc_planes", "group_batch", "held",
+           "key_pool", "launches_per_call", "reason_coverage",
+           "record_batch", "scan_batch", "scan_codes", "table_batch",
+           "table_fastpath_batch", "table_fastpath_corners", "table_planes",
+           "trace", "txn_chain", "txn_codes", "window"]

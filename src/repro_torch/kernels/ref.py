@@ -174,9 +174,11 @@ class GangTable(NamedTuple):
         return GangTable(*(p.clone() for p in self))
 
 
-def gang_from_numpy(planes: Sequence[np.ndarray], device="cpu") -> GangTable:
+def gang_from_numpy(planes: Sequence[np.ndarray], device="cuda") -> GangTable:
     """The JAX package's gang state (six numpy planes, uint32/int32 as
-    ``repro.kernels.ref._gang_np`` gives them) as the port's tensors."""
+    ``repro.kernels.ref._gang_np`` gives them) as the port's tensors, on
+    the card unless the caller asks for another device."""
+    device = resolve_device(device)
     return GangTable(*(
         torch.from_numpy(np.ascontiguousarray(np.asarray(a)).view(np.int32)
                          .copy()).to(device)
@@ -193,8 +195,10 @@ def gang_to_numpy(table: GangTable) -> Tuple[np.ndarray, ...]:
 
 
 def ring_from_numpy(hi: np.ndarray, lo: np.ndarray, cls: np.ndarray,
-                    device="cpu") -> Tuple[torch.Tensor, ...]:
-    """``[NS, CAP]`` uint32/uint32/int32 rings as int32 tensors."""
+                    device="cuda") -> Tuple[torch.Tensor, ...]:
+    """``[NS, CAP]`` uint32/uint32/int32 rings as int32 tensors, on the card
+    unless the caller asks for another device."""
+    device = resolve_device(device)
     return tuple(
         torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy()).to(device)
         for a in (np.asarray(hi, np.uint32), np.asarray(lo, np.uint32),

@@ -35,15 +35,20 @@ def case(request):
         grp=parity.group_batch(rng, pool, 64, 4, L, 24),
         gc=parity.gc_batch(rng, planes, S, 64, 24),
         fp=parity.fastpath_batch(rng, pool, 100, NS, CAP, F, L, 32, 24),
+        corners=parity.fastpath_corners(rng, 1000, NS, 1024, F, L, 32, 24),
     )
 
 
 @pytest.mark.parametrize("kernel", ["gang_record", "gang_record_groups",
                                     "gang_gc", "gang_fastpath"])
 def test_kernel_matches_plain_version(cuda, case, kernel):
+    """gang_fastpath also at its corners: every op in one shard, shards
+    with no op, rings filled to count + appends = CAP, hot keys that
+    commute or not; B = 1000, padded by the op and as given; and B = 3000
+    in one shard of a 4096-slot ring, which the kernel takes in chunks."""
     results = parity.check_kernels(case["planes"], S, case["rec"],
                                    case["grp"], case["gc"], case["fp"], F,
-                                   device=cuda)
+                                   device=cuda, fp_corners=case["corners"])
     torch.cuda.synchronize()
     got = {r.name: r for r in results}[kernel]
     assert got.outputs > 0
@@ -54,7 +59,10 @@ def test_kernel_matches_plain_version(cuda, case, kernel):
 @pytest.fixture(params=[0, 1])
 def table_case(request):
     """Single-table inputs at 64x4, 16x2 and 128x8, with K8 at a batch and
-    window that are not tile multiples."""
+    window that are not tile multiples, and K7's corners: no window, 777
+    entries with repeated keys (256x1, 128x8), 2500 entries (more than one
+    shared-memory table, 16x2), B = 1000; and B = 4000 on 1x4 (1024
+    entries) and 4x2 (2500), which each block takes in chunks."""
     rng = np.random.default_rng(request.param)
     records, fastpaths = [], []
     for S, W in ((64, 4), (16, 2), (128, 8)):
@@ -63,6 +71,7 @@ def table_case(request):
         records.append((planes, parity.table_batch(rng, pool, 512, W)))
         fastpaths.append((planes, parity.table_fastpath_batch(
             rng, pool, 300, 100, W, 4)))
+    fastpaths += parity.table_fastpath_corners(rng, 1000, 4, 2500)
     scans = [parity.scan_batch(rng, pool, 1000, 777),
              parity.scan_batch(rng, pool, 33, 1)]
     keys = dict(hi=pool.hi, lo=pool.lo,
@@ -79,6 +88,38 @@ def test_table_kernel_matches_plain_version(cuda, table_case, kernel):
     assert got.outputs > 0
     assert got.max_abs_err == 0
     assert not got.missed, got.coverage
+
+
+def test_redesigned_kernels_launch_once_per_call(cuda, case, table_case):
+    """fastpath_record_scan launches only its own kernel (no sort);
+    gang_fastpath launches its own kernel and then what K2's record stage
+    launches alone."""
+    from repro_torch.kernels import ops, ref
+
+    planes, fp = table_case[2][0]
+    table = ref.witness_table_from_numpy(planes, cuda)
+    args = ops.table_fastpath_operands(table, **fp)
+    per_call = parity.launches_per_call(
+        lambda: ops.fastpath_record_scan_cuda(table, *args))
+    assert len(per_call) == 1, per_call
+    (name, n), = per_call.items()
+    assert "fastpath_batch_kernel" in name and 0 < n <= 1, per_call
+
+    gang = ref.gang_from_numpy(case["planes"], cuda)
+    fpc = dict(case["fp"])
+    rings = ref.ring_from_numpy(fpc.pop("ring_hi"), fpc.pop("ring_lo"),
+                                fpc.pop("ring_cls"), cuda)
+    args = ops.fastpath_operands(gang, S, **fpc)
+    out = ops.gang_fastpath_cuda(gang, S, F, *args[:9], *rings, *args[9:])
+    per_call = parity.launches_per_call(lambda: ops.gang_fastpath_cuda(
+        gang, S, F, *args[:9], *rings, *args[9:]))
+    rows = torch.arange(len(out[0]), dtype=torch.int32, device=cuda)
+    record = parity.launches_per_call(lambda: ops._record_runs(
+        gang, S, rows, F, out[3], out[4], args[4], args[5], args[2], None))
+    own = sorted(set(per_call) - set(record))
+    assert len(own) == 1 and "gang_fastpath_kernel" in own[0], per_call
+    assert 0 < per_call[own[0]] <= 1, per_call
+    assert set(record) <= set(per_call), (per_call, record)
 
 
 def test_single_table_ops_on_the_card_match_the_cpu(cuda):

@@ -75,13 +75,14 @@ def test_keyhash_matches_numpy_with_sign_bits(n):
 
 def test_gang_state_round_trips_between_packages():
     _rng, _pool, planes = _state(0)
-    port = gang_from_numpy(planes)
+    port = gang_from_numpy(planes, device="cpu")
     assert all(p.dtype == torch.int32 for p in port)
     _planes_equal(port, planes)
     ring = [np.array([[0xF0000001, 3]], np.uint32),
             np.array([[1, 0x80000000]], np.uint32),
             np.array([[2, 8]], np.int32)]
-    for a, b in zip(ring_to_numpy(*ring_from_numpy(*ring)), ring):
+    rings = ring_from_numpy(*ring, device="cpu")
+    for a, b in zip(ring_to_numpy(*rings), ring):
         np.testing.assert_array_equal(a, b)
 
 
@@ -92,7 +93,7 @@ def test_gang_state_round_trips_between_packages():
 def test_gang_record_matches_ref_in_batch_order(seed):
     rng, pool, planes = _state(seed)
     q = parity.record_batch(rng, pool, 96, L, S, N_RPCS, flood=9)
-    table = gang_from_numpy(planes)
+    table = gang_from_numpy(planes, device="cpu")
     counters = torch.zeros((L, 5), dtype=torch.int32)
     rsn, qh, ql, table, counters = gang_record(
         table, S, q["key_hi"], q["key_lo"], q["lanes"], q["rpc_hi"],
@@ -117,7 +118,7 @@ def test_gang_record_matches_ref_in_batch_order(seed):
 def test_gang_record_groups_matches_ref(seed):
     rng, pool, planes = _state(seed)
     g = parity.group_batch(rng, pool, 40, 4, L, N_RPCS)
-    table = gang_from_numpy(planes)
+    table = gang_from_numpy(planes, device="cpu")
     counters = torch.zeros((L, 5), dtype=torch.int32)
     res = gang_record_groups(table, S, g["key_hi"], g["key_lo"],
                              g["key_valid"], g["lanes"], g["rpc_hi"],
@@ -148,7 +149,7 @@ def test_gang_record_groups_same_row_keys_take_distinct_ways():
     empty = tuple(np.zeros((L * S, W), d) for d in
                   (np.uint32, np.uint32, np.int32, np.uint32, np.uint32,
                    np.int32))
-    table = gang_from_numpy(empty)
+    table = gang_from_numpy(empty, device="cpu")
     key_hi = np.zeros((2, 5), np.uint32)
     key_lo = np.zeros((2, 5), np.uint32)
     key_hi[0, :2], key_lo[0, :2] = pool.hi[bucket[:2]], pool.lo[bucket[:2]]
@@ -172,7 +173,7 @@ def test_gang_record_groups_same_row_keys_take_distinct_ways():
 def test_gang_gc_matches_ref_with_dedup_entries(seed, do_age):
     rng, _pool, planes = _state(seed)
     e = parity.gc_batch(rng, planes, S, 80, N_RPCS)
-    table = gang_from_numpy(planes)
+    table = gang_from_numpy(planes, device="cpu")
     clr, table = gang_gc(table, S, e["g_hi"], e["g_lo"], e["g_rpc_hi"],
                          e["g_rpc_lo"], e["g_lane"], e["aged_lanes"],
                          do_age=do_age)
@@ -194,7 +195,7 @@ def test_gang_gc_identical_entries_both_report_cleared():
     rows, ways = np.nonzero(planes[2] > 0)
     r, w = rows[0], ways[0]
     one = [planes[i][r, w] for i in (0, 1, 3, 4)]
-    clr, table = gang_gc(gang_from_numpy(planes), S,
+    clr, table = gang_gc(gang_from_numpy(planes, device="cpu"), S,
                          [one[0]] * 2, [one[1]] * 2, [one[2]] * 2,
                          [one[3]] * 2, [r // S] * 2, np.zeros(L, np.int32))
     assert list(clr) == [1, 1]
@@ -242,15 +243,13 @@ def _np_ring_stage(fp, n_slots):
     return conflicts, shard, qh, ql, new_count, ring_hi, ring_lo, ring_cls
 
 
-@pytest.mark.parametrize("seed", SEEDS)
-def test_gang_fastpath_matches_numpy_loop_and_ref(seed):
-    rng, pool, planes = _state(seed)
-    NS, CAP, f, n_slots = 8, 64, 3, 32
-    fp = parity.fastpath_batch(rng, pool, 48, NS, CAP, f, L, n_slots, N_RPCS)
-    assert (fp["tail_slot"] + fp["count"] > CAP).any(), "a span wraps"
-    table = gang_from_numpy(planes)
+def _check_gang_fastpath(planes, fp, n_slots, f):
+    """One fused batch through the port's op on the CPU against the numpy
+    loop of the JAX package's ring stage and ``ref_gang_record``; returns
+    the op's result."""
+    table = gang_from_numpy(planes, device="cpu")
     ring_hi, ring_lo, ring_cls = ring_from_numpy(fp["ring_hi"], fp["ring_lo"],
-                                                 fp["ring_cls"])
+                                                 fp["ring_cls"], device="cpu")
     counters = torch.zeros((L, 5), dtype=torch.int32)
     res = gang_fastpath_batch(
         table, S, fp["key_hi"], fp["key_lo"], fp["rpc_hi"], fp["rpc_lo"],
@@ -278,6 +277,73 @@ def test_gang_fastpath_matches_numpy_loop_and_ref(seed):
     _planes_equal(res.table, want_table)
     np.testing.assert_array_equal(counters.numpy(),
                                   _counts(lanes.reshape(-1), want))
+    return res
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_fastpath_matches_numpy_loop_and_ref(seed):
+    rng, pool, planes = _state(seed)
+    NS, CAP, f, n_slots = 8, 64, 3, 32
+    fp = parity.fastpath_batch(rng, pool, 48, NS, CAP, f, L, n_slots, N_RPCS)
+    assert (fp["tail_slot"] + fp["count"] > CAP).any(), "a span wraps"
+    _check_gang_fastpath(planes, fp, n_slots, f)
+
+
+# The corners of the block-per-shard kernel: every op in one shard, shards
+# with no op, rings filled to count + appends = CAP, hot keys of a class
+# that commutes with itself (INCR) beside one that does not (SET), and a
+# batch of 3 x CORNER_B in one shard of rings of 4 x CORNER_CAP (at the
+# card's sizes, the one the kernel takes in chunks).
+CORNER_NS, CORNER_CAP, CORNER_SLOTS, CORNER_B = 8, 128, 32, 100
+
+
+def _corners(seed):
+    rng, _pool, planes = _state(seed)
+    return planes, parity.fastpath_corners(
+        rng, CORNER_B, CORNER_NS, CORNER_CAP, 3, L, CORNER_SLOTS, N_RPCS)
+
+
+@pytest.mark.parametrize("corner", [0, 1, 2, 3],
+                         ids=["one_shard", "idle_shards", "full_rings",
+                              "one_shard_big_batch"])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_fastpath_corner_matches_numpy_loop_and_ref(seed, corner):
+    planes, cases = _corners(seed)
+    res = _check_gang_fastpath(planes, cases[corner], CORNER_SLOTS, 3)
+    assert len(res.conflicts) == (3 if corner == 3 else 1) * CORNER_B
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_fastpath_corners_have_their_shape(seed):
+    _planes, (one, idle, full, big) = _corners(seed)
+
+    def shards(fp):
+        ql = jax_np_keyhash2x32(fp["key_hi"], fp["key_lo"])[1]
+        return fp["slot_map"][ql % np.uint32(CORNER_SLOTS)]
+
+    def appends(fp):
+        return np.bincount(shards(fp)[fp["exec_pred"] == 1],
+                           minlength=CORNER_NS)
+
+    assert set(shards(one)) == set(shards(big)) == {CORNER_NS - 1}
+    assert not set(shards(idle)) & set(range(1, CORNER_NS, 2))
+    for fp, cap in ((idle, CORNER_CAP), (full, CORNER_CAP),
+                    (big, 4 * CORNER_CAP)):
+        assert fp["ring_hi"].shape == (CORNER_NS, cap)
+        np.testing.assert_array_equal(fp["count"] + appends(fp), cap)
+        assert (fp["tail_slot"] + fp["count"] > cap).any()
+    assert len(big["key_hi"]) == 3 * CORNER_B
+    # Hot keys: the INCRs on one key never conflict with each other, so
+    # they share one verdict (their ring's); every SET after the first
+    # conflicts with it.
+    for fp in (one, full):
+        con = _np_ring_stage(fp, CORNER_SLOTS)[0]
+        hot = np.flatnonzero(fp["rpc_lo"] >= 4 * (N_RPCS + CORNER_B))
+        incr = hot[fp["key_cls"][hot] == 2]
+        sets = hot[fp["key_cls"][hot] == 0]
+        assert incr.size and sets.size
+        assert len(set(con[incr])) == 1
+        assert (con[np.sort(sets)[1:]] == 1).all()
 
 
 def test_gang_fastpath_overflow_raises():
@@ -285,8 +351,9 @@ def test_gang_fastpath_overflow_raises():
     fp = parity.fastpath_batch(rng, pool, 16, 1, 8, 1, L, 4, N_RPCS)
     fp["count"][:] = 8
     fp["exec_pred"][:] = 1
-    rings = ring_from_numpy(fp["ring_hi"], fp["ring_lo"], fp["ring_cls"])
-    table = gang_from_numpy(planes)
+    rings = ring_from_numpy(fp["ring_hi"], fp["ring_lo"], fp["ring_cls"],
+                            device="cpu")
+    table = gang_from_numpy(planes, device="cpu")
     with pytest.raises(ValueError, match="ring overflow"):
         gang_fastpath_batch(
             table, S, fp["key_hi"], fp["key_lo"],

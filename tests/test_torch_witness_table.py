@@ -7,7 +7,9 @@ are held against ``repro.kernels.ops`` itself (their Pallas kernels trace
 in interpret mode here); K6 and K7 against the ``repro.kernels.ref``
 oracles (their Pallas bodies need a Pallas with ``pl.load``).  The same
 seeded numpy inputs go to both sides; equality is exact.  Shapes: 64x4,
-16x2 and 256x1 tables, batches of at most 512, windows of at most 128.
+16x2 and 256x1 tables, batches of at most 512, windows of at most 128; K7's
+corners add 1024x4, 128x8, 4x2 and 1x4 tables, empty windows, ones of 1024
+and 1500, and batches of 800.
 """
 import statistics
 
@@ -128,11 +130,9 @@ def test_witness_record_does_not_hash_and_pads_to_a_bucket():
 # ---------------------------------------------------------------------------
 # K7: fastpath_batch = hash -> route -> record -> window scan
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("S,W", GEOMETRIES, ids=lambda v: str(v))
-@pytest.mark.parametrize("seed", SEEDS)
-def test_fastpath_batch_matches_ref_pipeline(seed, S, W):
-    rng, pool, planes = _case(seed, S, W)
-    fp = parity.table_fastpath_batch(rng, pool, 300, 128, W, n_shards=6)
+def _check_fastpath(planes, fp):
+    """One fastpath_batch through the port's op on the CPU against the JAX
+    package's pipeline of oracles; returns the conflict bits."""
     res = fastpath_batch(witness_table_from_numpy(planes, "cpu"),
                          fp["key_hi"], fp["key_lo"], fp["key_cls"],
                          window_hi=fp["window_hi"], window_lo=fp["window_lo"],
@@ -142,17 +142,51 @@ def test_fastpath_batch_matches_ref_pipeline(seed, S, W):
         jnp.asarray(fp["key_hi"]), jnp.asarray(fp["key_lo"])))
     shard = fp["slot_map"][ql % np.uint32(fp["slot_map"].size)]
     acc, table = _oracle_record(planes, qh, ql, fp["key_cls"])
-    con = np.asarray(ref_conflict_scan(
-        jnp.asarray(fp["window_hi"]), jnp.asarray(fp["window_lo"]),
-        jnp.asarray(fp["window_valid"]), jnp.asarray(qh), jnp.asarray(ql),
-        jnp.asarray(fp["key_cls"])))
+    if len(fp["window_hi"]):
+        con = np.asarray(ref_conflict_scan(
+            jnp.asarray(fp["window_hi"]), jnp.asarray(fp["window_lo"]),
+            jnp.asarray(fp["window_valid"]), jnp.asarray(qh),
+            jnp.asarray(ql), jnp.asarray(fp["key_cls"])))
+    else:
+        con = np.zeros(len(qh), np.int32)
     np.testing.assert_array_equal(res.q_hi, qh)
     np.testing.assert_array_equal(res.q_lo, ql)
     np.testing.assert_array_equal(res.shard_ids, shard)
     np.testing.assert_array_equal(res.accepted, acc)
     np.testing.assert_array_equal(res.conflicts, con)
     _tables_equal(res.table, table)
+    return con
+
+
+@pytest.mark.parametrize("S,W", GEOMETRIES, ids=lambda v: str(v))
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fastpath_batch_matches_ref_pipeline(seed, S, W):
+    rng, pool, planes = _case(seed, S, W)
+    fp = parity.table_fastpath_batch(rng, pool, 300, 128, W, n_shards=6)
+    con = _check_fastpath(planes, fp)
     assert 0 < con.sum() < len(con)
+
+
+@pytest.mark.parametrize("corner", [0, 1, 2, 3, 4, 5],
+                         ids=["1024x4_empty_window", "256x1_dup_window",
+                              "128x8_dup_window", "16x2_big_window",
+                              "1x4_big_batch", "4x2_big_batch_big_window"])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fastpath_batch_corner_matches_ref_pipeline(seed, corner):
+    """The corners of the set-owning kernel: no window, a window with
+    repeated keys of other classes, one larger than a shared-memory table
+    (1024 entries), one way and eight, a batch the op pads, and batches of
+    4 x B on tables of one and four sets (on the card, more queries than a
+    block's list holds)."""
+    rng = np.random.default_rng(seed)
+    planes, fp = parity.table_fastpath_corners(rng, 200, 6, 1500)[corner]
+    assert len(fp["key_hi"]) == (800 if corner >= 4 else 200)
+    con = _check_fastpath(planes, fp)
+    U = len(fp["window_hi"])
+    assert (con.sum() == 0) if U == 0 else (0 < con.sum() < len(con))
+    if U:
+        keys = np.stack([fp["window_hi"], fp["window_lo"]], 1)
+        assert np.unique(keys, axis=0).shape[0] < U, "repeated window keys"
 
 
 def test_fastpath_batch_empty_window_and_default_route():
