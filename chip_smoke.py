@@ -19,6 +19,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    past CAP, INCR over INCR beside SET over SET on hot keys; and B = 3000
    all in one shard with rings of 4096 so filled, which the kernel takes in
    chunks (its list of 1024 ops and its staged table of 1024 ring entries).
+   gang_gc (K4) also meets the corners of its row-owning design, as the op
+   pads them and as given: identical entries (both report 1), one row whose
+   4 ways hold one key under 4 rpcs, entries only in lanes that do not
+   age, no aging, no entries with aging, and 4096 entries in one aged lane
+   and over eight lanes.
 2. The slice end to end: ``ShardedCluster(n_shards=64, f=3,
    geometry=WitnessGeometry(1024, 4), sync_batch=50,
    witness_backend="device")`` on the card, driven by the update half of
@@ -53,7 +58,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    0), 777 entries with repeated keys of other classes at 256 x 1 and
    128 x 8, and 3072 entries (three shared-memory tables) at 16 x 2; and
    B = 4000 at 1 x 4 against 1024 entries and at 4 x 2 against 3072, where
-   each block takes its queries in chunks of its list of 1024.
+   each block takes its queries in chunks of its list of 1024.  K6 runs
+   every case as padded and as given, and meets the corners of its
+   set-owning design: 4096 queries in one set of 1024 x 4 (taken in
+   chunks), 256 x 1, 128 x 8, 64 x 64 (ways at a stride of 32), 16 x 4
+   (fewer sets than blocks) and a batch of padding only.
 3. Durability: the masters of 4 shards crash half-way through phase 2; at
    the end every acknowledged key is read back and compared with a model of
    the acknowledged writes.
@@ -95,11 +104,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    the fused batches' wall time, the device's idle share during one more
    fused batch, and the host's self time by source file in another.  K1
    and K6-K8 are timed the same way at phase 5's shapes, K9-K11 at phase
-   6's.  For the two kernels redesigned as one launch, the kernels each
-   call launches under the profiler (fastpath_record_scan: its own kernel
-   only; gang_fastpath: its own kernel and what K2's record stage launches
-   alone) and gang_fastpath's own launch's device time apart from that
-   stage.  Device times count each kernel per launch the trace caught.
+   6's.  For the four kernels redesigned as one launch, the kernels each
+   call launches under the profiler (fastpath_record_scan, witness_record
+   and gang_gc: their own kernel only; gang_fastpath: its own kernel and
+   what K2's record stage launches alone) and gang_fastpath's own launch's
+   device time apart from that stage.  Device times count each kernel per
+   launch the trace caught.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``;
 the line before them names the card and its power limit.  Details also go
@@ -173,8 +183,10 @@ def phase_parity(np, parity, card, device, sync):
     fp = parity.fastpath_batch(rng, pool, BATCH, NS, CAP, F, L, 256, 256)
     check((fp["tail_slot"] + fp["count"] > CAP).any(), "no ring span wraps")
     corners = parity.fastpath_corners(rng, 1000, NS, CAP, F, L, 256, 256)
+    gc_corners = parity.gc_corners(rng, planes, N_SETS, 256)
     results = parity.check_kernels(planes, N_SETS, rec, grp, gc, fp, F,
-                                   device=device, fp_corners=corners)
+                                   device=device, fp_corners=corners,
+                                   gc_corners=gc_corners)
     sync()
     say(card, "parity gang_fastpath corners (B = 1000, as padded and as "
               "given): every op in shard 63; 32 shards with no op and the "
@@ -182,6 +194,12 @@ def phase_parity(np, parity, card, device, sync):
               "filled, with hot INCR over INCR and SET over SET; B = 3000 "
               "all in shard 63, rings of 4096 so filled (the shard's list "
               "and live span taken in chunks)")
+    say(card, "parity gang_gc corners (as padded and as given): "
+              + ", ".join(f"{name} (G = {len(g['g_hi'])}, "
+                          f"{int(g['aged_lanes'].sum()) if age else 0} aged "
+                          f"lanes)"
+                          for name, (_p, g, age) in zip(parity.GC_CORNERS,
+                                                        gc_corners)))
     for r in results:
         say(card, f"parity {r.name}: {r.outputs} integers, "
                   f"max_abs_err {r.max_abs_err}, outcomes by value "
@@ -243,9 +261,17 @@ def phase_table_parity(np, parity, card, device, sync, key_lanes):
              parity.scan_batch(rng, pool, 1000, 777)]
     fastpaths += parity.table_fastpath_corners(
         np.random.default_rng(SEED + 10), 1000, N_SHARDS, 3 * WINDOW)
+    record_corners = parity.table_record_corners(
+        np.random.default_rng(SEED + 11), 1024)
+    records += record_corners
     results = parity.check_table_kernels(keys, records, fastpaths, scans,
                                          device=device)
     sync()
+    say(card, "parity witness_record corners (as padded and as given): "
+              + ", ".join(f"{name} ({p[2].shape[0]}x{p[2].shape[1]}, "
+                          f"B = {len(q['q_hi'])})"
+                          for name, (p, q) in zip(parity.TABLE_RECORD_CORNERS,
+                                                  record_corners)))
     say(card, f"parity fastpath_record_scan corners (B = 1000, as padded "
               f"and as given): no window at 1024x4, 777 entries with "
               f"repeated keys at 256x1 and 128x8, {3 * WINDOW} (three "
@@ -1079,6 +1105,21 @@ def _device_ms(torch, fn, iters=20, before=None, only=None):
     return total / 1e3 or None
 
 
+def _one_launch(card, parity, name, fn, kernel):
+    """Check that each call of ``fn`` launches ``kernel`` and nothing else,
+    by the kernels a profiler trace of 20 calls caught (a share in (0, 1]:
+    a trace may miss launches, never add one); returns the shares."""
+    per_call = parity.launches_per_call(fn)
+    got, n_own = (next(iter(per_call.items())) if len(per_call) == 1
+                  else ("", 0))
+    check(kernel in got and 0 < n_own <= 1,
+          f"{name} is not one launch of its own kernel: {per_call}")
+    say(card, f"{name} launches per call: {n_own:g} of {kernel} and no "
+              f"other (the trace caught {n_own * 20:.0f} launches in 20 "
+              f"calls)")
+    return per_call
+
+
 def _bound_ms(nbytes, nops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / INT32_OPS_PER_S * 1e3
@@ -1147,12 +1188,12 @@ def phase_times(np, torch, dev_cluster, card, device):
         torch.cuda.synchronize()
         return _write_bytes(np, planes, table, counters)
 
-    def timed(kernel, plain, nbytes, nops):
+    def timed(kernel, plain, nbytes, nops, only=None):
         t = dict(ms=_event_ms(torch, kernel, restore, 50),
                  plain_ms=_event_ms(torch, plain, restore, 5),
                  bytes=nbytes, bound=_bound_ms(nbytes, nops))
         restore()
-        t["device_ms"] = _device_ms(torch, kernel)
+        t["device_ms"] = _device_ms(torch, kernel, only=only)
         return t
 
     def on_card(a):
@@ -1277,10 +1318,17 @@ def phase_times(np, torch, dev_cluster, card, device):
               + int((probed | in_aged).sum()) * 4  # occ, read once
               + int((in_aged & (occ_after > 0)).sum()) * 4  # ages that grow
               + wrote)
+    # Its device time is the kernel's: the wrapper's check of the aged
+    # lanes copies them to the host first (in card ms, not here).
     out["gang_gc"] = timed(
         lambda: kops.gang_gc_cuda(table, N_SETS, *gargs, True),
         lambda: ref.gang_gc_plain(table, N_SETS, *gargs, True), nbytes,
-        G * W * 10 + int(in_aged.sum()) * 3)
+        G * W * 10 + int(in_aged.sum()) * 3, only="gang_gc_kernel")
+    restore()
+    out["gang_gc"]["launches_per_call"] = _one_launch(
+        card, parity, "gang_gc",
+        lambda: kops.gang_gc_cuda(table, N_SETS, *gargs, True),
+        "gang_gc_kernel")
 
     # K5: DeviceWitness.record, one single-key op (G = K = 1): key, class,
     # lane and rpc in; one row probed; reason and mixed lanes out.
@@ -1381,6 +1429,11 @@ def phase_table_times(np, torch, card, device, key_lanes):
         lambda: kops.witness_record_cuda(table, *args),
         lambda: ref.witness_record_plain(table, *args), clear, nbytes,
         B * TABLE_WAYS * 6)
+    clear()
+    out["witness_record"]["launches_per_call"] = _one_launch(
+        card, parity, "witness_record",
+        lambda: kops.witness_record_cuda(table, *args),
+        "witness_record_kernel")
 
     # K7: one fused batch of 4096 ops against a 1024-entry window.
     pool = parity.key_pool(rng, 4 * TABLE_SETS, TABLE_SETS)
@@ -1409,17 +1462,10 @@ def phase_table_times(np, torch, card, device, key_lanes):
         lambda: ref.fastpath_record_scan_plain(table, *fargs), restore,
         nbytes, nops + TABLE_BATCH * (29 + TABLE_WAYS * 6))
     restore()
-    per_call = parity.launches_per_call(
-        lambda: kops.fastpath_record_scan_cuda(table, *fargs))
-    name, n_own = (next(iter(per_call.items())) if len(per_call) == 1
-                   else ("", 0))
-    check("fastpath_batch_kernel" in name and 0 < n_own <= 1,
-          f"fastpath_record_scan is not one launch of its own kernel: "
-          f"{per_call}")
-    out["fastpath_record_scan"]["launches_per_call"] = per_call
-    say(card, f"fastpath_record_scan launches per call: {n_own:g} of its own "
-              f"kernel and no other (the trace caught {n_own * 20:.0f} "
-              f"launches in 20 calls)")
+    out["fastpath_record_scan"]["launches_per_call"] = _one_launch(
+        card, parity, "fastpath_record_scan",
+        lambda: kops.fastpath_record_scan_cuda(table, *fargs),
+        "fastpath_batch_kernel")
 
     # K8: 4096 queries against a 1024-entry window.
     sc = parity.scan_batch(rng, pool, TABLE_BATCH, WINDOW)

@@ -23,7 +23,8 @@
 //   entries), so a query's conflict is one probe: (matrix row & mask) != 0,
 //   bit for bit the OR of window_hit.  A window larger than one table is
 //   taken in tiles whose hits are ORed, in the same kernel.  Then a warp per
-//   set walks that set's queries in batch order, lanes holding the ways (a
+//   set walks that set's queries in batch order (walk_sets, set_walk.cuh,
+//   which K6 shares), lanes holding the ways (a
 //   stride of 32 over wider sets): ballots find a same-key way whose class
 //   bit is set in the query's matrix row (a conflict), else the first free
 //   way, which takes occ = 1 + class (a same-key record of a class that
@@ -39,6 +40,7 @@
 #include <cstdint>
 
 #include "keyhash.cuh"
+#include "set_walk.cuh"
 #include "smem_join.cuh"
 
 using namespace repro_torch;
@@ -51,7 +53,6 @@ constexpr int kList = 1024;     // queries held per chunk (a multiple of
                                 // kThreads)
 constexpr int kTile = 1024;     // window entries per staged table
 constexpr int kSlots = 2 * kTile;
-constexpr int kTargetBlocks = 128;
 
 using Shared = OwnedList<kSlots, kList, kWarps>;
 
@@ -97,40 +98,6 @@ __device__ void stage_window(const Args& a, KeyMaskTable& table, int base,
   __syncthreads();
 }
 
-// One query against its set's row, all lanes of the warp together.
-__device__ __forceinline__ void record_one(const Args& a, const Shared& sm,
-                                           int j) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t h = sm.q_hi[j], l = sm.q_lo[j];
-  const int32_t cls = sm.q_cls[j];
-  const int32_t mrow = matrix_row(a.matrix, a.n_cls, cls);
-  const int64_t row =
-      static_cast<int64_t>(l & static_cast<uint32_t>(a.n_sets - 1)) * a.W;
-  bool conflict = false;
-  int way = -1;
-  for (int c = 0; c < a.W; c += 32) {
-    const int w = c + lane;
-    bool conf = false, free = false;
-    if (w < a.W) {
-      const int32_t o = a.t_occ[row + w];
-      free = o == 0;
-      conf = o > 0 && a.t_hi[row + w] == h && a.t_lo[row + w] == l &&
-             matrix_bit(mrow, o - 1);
-    }
-    conflict |= __any_sync(kAllLanes, conf) != 0;
-    const unsigned fm = __ballot_sync(kAllLanes, free);
-    if (way < 0 && fm != 0u) way = c + __ffs(fm) - 1;
-  }
-  const bool ok = !conflict && way >= 0;
-  if (ok && lane == (way & 31)) {
-    a.t_hi[row + way] = h;
-    a.t_lo[row + way] = l;
-    a.t_occ[row + way] = 1 + cls;
-  }
-  if (lane == 0) a.accepted[sm.q_idx[j] & kPos] = ok ? 1 : 0;
-  __syncwarp();
-}
-
 // The block's chunk of n queries: window hits, then the record walk.
 __device__ void run_chunk(const Args& a, Shared& sm, KeyMaskTable& table,
                           bool resident, int set0, int n) {
@@ -149,25 +116,7 @@ __device__ void run_chunk(const Args& a, Shared& sm, KeyMaskTable& table,
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     a.conflicts[sm.q_idx[i] & kPos] = (sm.q_idx[i] & kHit) ? 1 : 0;
-  // Warp w walks, in batch order, the queries of the sets it owns (the
-  // block's sets taken round robin): a set is only ever touched by one
-  // warp, so its queries resolve in order and sets never race.
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int base = 0; base < n; base += 32) {
-    const int i = base + lane;
-    bool mine = false;
-    if (i < n) {
-      const int set =
-          static_cast<int>(sm.q_lo[i] & static_cast<uint32_t>(a.n_sets - 1));
-      mine = (set - set0) % kWarps == warp;
-    }
-    unsigned m = __ballot_sync(kAllLanes, mine);
-    while (m != 0u) {
-      const int j = base + __ffs(m) - 1;
-      m &= m - 1u;
-      record_one(a, sm, j);
-    }
-  }
+  walk_sets<kWarps>(a, sm, set0, n, a.accepted);
   __syncthreads();  // the list is free for the next chunk
 }
 
@@ -200,12 +149,6 @@ __global__ void __launch_bounds__(kThreads)
         return valid;
       },
       [&](int n) { run_chunk(a, sm, table, resident, set0, n); });
-}
-
-// Sets per block for a table of n_sets (a power of two): enough blocks to
-// cover the card, and a whole number of sets each.
-int sets_per_block(int n_sets) {
-  return n_sets > kTargetBlocks ? n_sets / kTargetBlocks : 1;
 }
 
 }  // namespace

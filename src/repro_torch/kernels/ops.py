@@ -86,7 +86,7 @@ GANG_FASTPATH = CudaKernel(
 GANG_GC = CudaKernel(
     "gang_gc", _CSRC + "gang_gc.cu",
     "src/repro/kernels/witness_record.py:943",
-    {"gang_gc_launch": [I] + [P] * 6 + [I, P, I, I] + [P] * 9})
+    {"gang_gc_launch": [I] + [P] * 6 + [I, P, I, I, I] + [P] * 9})
 GANG_GROUPS = CudaKernel(
     "gang_record_groups", _CSRC + "gang_groups.cu",
     "src/repro/kernels/witness_record.py:846",
@@ -98,8 +98,7 @@ KEYHASH = CudaKernel(
 WITNESS_RECORD = CudaKernel(
     "witness_record", _CSRC + "witness_table.cu",
     "src/repro/kernels/witness_record.py:258",
-    {"witness_sets": [I, P, P, I, P, P],
-     "witness_record_runs": [I] + [P] * 6 + [I] * 3 + [P] * 5})
+    {"witness_record_launch": [I] + [P] * 5 + [I] * 3 + [P] * 5})
 FASTPATH_RECORD_SCAN = CudaKernel(
     "fastpath_record_scan", _CSRC + "fastpath_batch.cu",
     "src/repro/kernels/witness_record.py:307",
@@ -237,7 +236,20 @@ def gang_groups_cuda(table: GangTable, n_sets: int, k_hi, k_lo, k_valid,
 
 def gang_gc_cuda(table: GangTable, n_sets: int, g_hi, g_lo, g_rh, g_rl,
                  g_lane, g_valid, aged_idx, do_age: bool):
-    """K4 on the card; see ``ref.gang_gc_plain`` for the contract."""
+    """K4 on the card, one launch; see ``ref.gang_gc_plain`` for the
+    contract.  ``g_lane`` must lie in [0, L), as ``gc_operands`` checks on
+    the host; ``aged_idx`` must hold distinct lanes in [0, L), checked
+    here."""
+    n_aged = aged_idx.shape[0] if do_age else 0
+    if n_aged:
+        # Each tile of an aged lane has one owning block, and the entry
+        # blocks mark the aged lanes in a shared bitmap: a repeated lane
+        # would give a tile two owners, one out of range a write past the
+        # bitmap.  At most L values, one copy to the host.
+        aged = aged_idx.cpu().numpy()
+        _check_range("aged_idx", aged, _n_lanes(table, n_sets))
+        if np.unique(aged).size != n_aged:
+            raise ValueError(f"aged_idx repeats a lane: {aged.tolist()}")
     dev = g_hi.device
     _check_cuda(dev, *table, g_hi, g_lo, g_rh, g_rl, g_lane, g_valid,
                 aged_idx)
@@ -247,17 +259,18 @@ def gang_gc_cuda(table: GangTable, n_sets: int, g_hi, g_lo, g_rh, g_rl,
     G = g_hi.shape[0]
     cleared = torch.empty(G, dtype=torch.int32, device=dev)
     way_mask = torch.empty(G, dtype=torch.int32, device=dev)
-    n_aged = aged_idx.shape[0] if do_age else 0
+    if G == 0 and n_aged == 0:
+        return cleared
     GANG_GC.call(
         "gang_gc_launch", G, _ptr(g_hi), _ptr(g_lo), _ptr(g_rh), _ptr(g_rl),
-        _ptr(g_lane), _ptr(g_valid), n_aged, _ptr(aged_idx), n_sets, W,
-        *(_ptr(p) for p in table), _ptr(cleared), _ptr(way_mask),
-        _stream(dev))
+        _ptr(g_lane), _ptr(g_valid), n_aged, _ptr(aged_idx),
+        _n_lanes(table, n_sets), n_sets, W, *(_ptr(p) for p in table),
+        _ptr(cleared), _ptr(way_mask), _stream(dev))
     GANG_GC.launches += 1
     return cleared
 
 
-# K3 and K7 keep an item's batch position below bit 29 of a word whose
+# K3, K6 and K7 keep an item's batch position below bit 29 of a word whose
 # upper bits are flags (smem_join.cuh).
 _MAX_BATCH = 1 << 29
 
@@ -316,23 +329,24 @@ def keyhash_cuda(hi, lo, slot_map=None):
 
 
 def witness_record_cuda(table: WitnessTable, q_hi, q_lo, q_cls, q_valid):
-    """K6 on the card; see ``ref.witness_record_plain`` for the contract:
-    a prep launch writes each query's set, a stable sort by set, then one
-    thread per run of equal sets.  Returns accept bits in batch order."""
+    """K6 on the card, one launch (no sort); see
+    ``ref.witness_record_plain`` for the contract.  Returns accept bits in
+    batch order."""
     dev = q_hi.device
     _check_cuda(dev, *table, q_hi, q_lo, q_cls, q_valid)
     S, W = table.occ.shape
-    sets = torch.empty_like(q_hi)
-    st = _stream(dev)
-    WITNESS_RECORD.call("witness_sets", q_hi.shape[0], _ptr(q_lo),
-                        _ptr(q_valid), S, _ptr(sets), st)
-    sets_sorted, perm = torch.sort(sets, stable=True)
-    accepted = torch.zeros_like(sets)
+    B = q_hi.shape[0]
+    if B >= _MAX_BATCH:
+        raise ValueError(f"witness_record takes fewer than {_MAX_BATCH} "
+                         f"queries, got {B}")
+    accepted = torch.empty_like(q_hi)
+    if B == 0:
+        return accepted
     m = _matrix(dev)
-    WITNESS_RECORD.call("witness_record_runs", sets.shape[0],
-                        _ptr(sets_sorted), _ptr(perm), _ptr(q_hi), _ptr(q_lo),
-                        _ptr(q_cls), _ptr(m), m.numel(), S, W,
-                        *(_ptr(p) for p in table), _ptr(accepted), st)
+    WITNESS_RECORD.call("witness_record_launch", B, _ptr(q_hi), _ptr(q_lo),
+                        _ptr(q_cls), _ptr(q_valid), _ptr(m), m.numel(), S, W,
+                        *(_ptr(p) for p in table), _ptr(accepted),
+                        _stream(dev))
     WITNESS_RECORD.launches += 1
     return accepted
 

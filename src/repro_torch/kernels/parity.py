@@ -222,6 +222,98 @@ def gc_batch(rng: np.random.Generator, planes, n_sets: int, G: int,
                 g_lane=uniq[0].astype(np.int32), aged_lanes=aged)
 
 
+def _gc_spread(rng: np.random.Generator, planes, n_sets: int, G: int,
+               n_rpcs: int, lanes) -> Dict[str, np.ndarray]:
+    """``G`` distinct gc entries over ``lanes``: up to half of them held
+    (key, rpc) pairs of those lanes, the rest keys of their held slots under
+    stale rpcs, each its own (a tenth of them unknown keys)."""
+    khi, klo, occ, rhi, rlo, _age = planes
+    rows, ways = np.nonzero(occ > 0)
+    keep = np.isin(rows // n_sets, np.asarray(lanes))
+    rows, ways = rows[keep], ways[keep]
+    n_held = min(G // 2, rows.size)
+    at = np.concatenate([rng.choice(rows.size, n_held, replace=False),
+                         rng.integers(0, rows.size, G - n_held)])
+    r, w = rows[at], ways[at]
+    g_hi, g_lo = khi[r, w].copy(), klo[r, w].copy()
+    g_rh, g_rl = rhi[r, w].copy(), rlo[r, w].copy()
+    stale = np.arange(G) >= n_held
+    g_rl[stale] = np.uint32(n_rpcs + 1) + np.arange(int(stale.sum()),
+                                                    dtype=np.uint32)
+    unknown = stale & (rng.random(G) < 0.1)
+    g_hi[unknown] = rng.integers(0, 2**32, int(unknown.sum()),
+                                 dtype=np.uint64).astype(np.uint32)
+    order = rng.permutation(G)
+    return dict(g_hi=g_hi[order], g_lo=g_lo[order], g_rpc_hi=g_rh[order],
+                g_rpc_lo=g_rl[order],
+                g_lane=(r[order] // n_sets).astype(np.int32))
+
+
+GC_CORNERS = ("identical_entries", "one_row_all_ways", "non_aged_lanes",
+              "no_aging", "no_entries", "big_one_lane", "big_eight_lanes")
+
+
+def gc_corners(rng: np.random.Generator, planes, n_sets: int, n_rpcs: int):
+    """(planes, entries, do_age) cases at the corners of K4's row-owning
+    design, in the order of ``GC_CORNERS``: a :func:`gc_batch` whose every
+    entry comes twice (identical entries both report 1, as the pre-gc rule
+    says); one row of an aged lane whose W ways hold one key under W rpcs,
+    each (key, rpc) an entry; entries only in lanes that do not age (the
+    first half of the lanes age); a batch with ``do_age`` false; no entries
+    with aging; and 4096 distinct entries in one aged lane, and spread
+    over eight lanes (every other one aged), so that one block walks and
+    owns many.  ``planes`` is a :func:`gang_planes` gang of at least eight
+    lanes; the second case changes one row of a copy."""
+    L = planes[2].shape[0] // n_sets
+    W = planes[2].shape[1]
+
+    def mask(lanes):
+        m = np.zeros(L, np.int32)
+        m[list(lanes)] = 1
+        return m
+
+    out = []
+    e = gc_batch(rng, planes, n_sets, 64, n_rpcs)
+    order = rng.permutation(2 * len(e["g_hi"]))
+    out.append((planes, {k: (v if k == "aged_lanes"
+                             else np.concatenate([v, v])[order])
+                         for k, v in e.items()}, True))
+
+    one = tuple(np.array(p, copy=True) for p in planes)
+    lane = int(rng.integers(0, L))
+    row = lane * n_sets + int(rng.integers(0, n_sets))
+    k_hi = rng.integers(0, 2**32, dtype=np.uint64).astype(np.uint32)
+    k_lo = (rng.integers(0, 2**32, dtype=np.uint64).astype(np.uint32)
+            & ~np.uint32(n_sets - 1)) | np.uint32(row % n_sets)
+    rpcs = (n_rpcs + 1 + np.arange(W)).astype(np.uint32)
+    one[0][row], one[1][row], one[3][row], one[4][row] = k_hi, k_lo, 7, rpcs
+    one[2][row] = 1 + cls_of_rpc(rpcs)
+    one[5][row] = rng.integers(0, 5, W)
+    out.append((one, dict(g_hi=np.full(W, k_hi), g_lo=np.full(W, k_lo),
+                          g_rpc_hi=np.full(W, 7, np.uint32),
+                          g_rpc_lo=rpcs[rng.permutation(W)],
+                          g_lane=np.full(W, lane, np.int32),
+                          aged_lanes=mask([lane])), True))
+
+    half = range(L // 2)
+    out.append((planes, dict(_gc_spread(rng, planes, n_sets, 200, n_rpcs,
+                                        range(L // 2, L)),
+                             aged_lanes=mask(half)), True))
+    out.append((planes, gc_batch(rng, planes, n_sets, 200, n_rpcs), False))
+    empty = np.zeros(0, np.uint32)
+    out.append((planes, dict(g_hi=empty, g_lo=empty, g_rpc_hi=empty,
+                             g_rpc_lo=empty, g_lane=np.zeros(0, np.int32),
+                             aged_lanes=mask(half)), True))
+    out.append((planes, dict(_gc_spread(rng, planes, n_sets, 4096, n_rpcs,
+                                        [L - 1]),
+                             aged_lanes=mask([L - 1, 0])), True))
+    eight = range(8)
+    out.append((planes, dict(_gc_spread(rng, planes, n_sets, 4096, n_rpcs,
+                                        eight),
+                             aged_lanes=mask(eight[::2])), True))
+    return out
+
+
 def fastpath_batch(rng: np.random.Generator, pool: KeyPool, B: int, NS: int,
                    CAP: int, f: int, n_lanes: int, n_slots: int,
                    n_rpcs: int, *, shards=None, exact_fit: bool = False,
@@ -355,21 +447,28 @@ def launches_per_call(fn, iters: int = 20) -> Dict[str, float]:
     fills left out), as caught in a :func:`trace` of ``iters`` calls (a
     share under 1 is launches the trace missed)."""
     counts: Dict[str, float] = {}
-    for e in trace(fn, iters).key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.key.startswith(("Memcpy", "Memset"))):
-            counts[e.key] = counts.get(e.key, 0) + e.count / iters
+    # A trace that caught no launch at all is taken again, up to three
+    # traces: late in a long run the profiler can miss a whole window,
+    # while a call that launches nothing reads empty every time.
+    for _ in range(3):
+        for e in trace(fn, iters).key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.key.startswith(("Memcpy", "Memset"))):
+                counts[e.key] = counts.get(e.key, 0) + e.count / iters
+        if counts:
+            break
     return counts
 
 
 def check_kernels(planes, n_sets: int, rec: dict, grp: dict, gc: dict,
-                  fp: dict, f: int, device="cuda",
-                  fp_corners=()) -> List[Parity]:
+                  fp: dict, f: int, device="cuda", fp_corners=(),
+                  gc_corners=()) -> List[Parity]:
     """Run each CUDA kernel and its plain version on identical copies of
     the same device tensors; compare every output, every table plane, the
     rings and the counter plane.  ``fp_corners`` (:func:`fastpath_corners`)
-    are more K3 cases, each run as the op pads it and trimmed to its real
-    batch.  Returns one :class:`Parity` per kernel."""
+    are more K3 cases and ``gc_corners`` (:func:`gc_corners`) more K4
+    cases, each run as the op pads it and trimmed to its real batch.
+    Returns one :class:`Parity` per kernel."""
     device = torch.device(device)
     base = ref.gang_from_numpy(planes, device)
     L = base.occ.shape[0] // n_sets
@@ -396,18 +495,21 @@ def check_kernels(planes, n_sets: int, rec: dict, grp: dict, gc: dict,
         list(zip(ra, rb)) + list(zip(ta, tb)) + [(ca, cb)]),
         _coverage(ra[0][args[7] == 1])))
 
-    for do_age in (True, False):
-        (ta, _), (tb, _) = twins()
-        args = ops.gc_operands(base, n_sets, **gc)
+    parts = []
+    cases = [(planes, gc, True, None), (planes, gc, False, None)]
+    for p, g, do_age in gc_corners:
+        cases += [(p, g, do_age, None), (p, g, do_age, len(g["g_hi"]))]
+    for p, g, do_age, trim in cases:
+        b = base if p is planes else ref.gang_from_numpy(p, device)
+        ta, tb = b.clone(), b.clone()
+        args = ops.gc_operands(b, n_sets, **g)
+        if trim is not None:         # the real entries, without the padding
+            args = [a[:trim] for a in args[:6]] + [args[6]]
         ra = ops.gang_gc_cuda(ta, n_sets, *args, do_age)
         rb = ref.gang_gc_plain(tb, n_sets, *args, do_age)
-        err, n = _diff([(ra, rb)] + list(zip(ta, tb)))
-        cov = _coverage(ra[args[5] == 1])
-        if not do_age:
-            prev = out.pop()
-            err, n = max(err, prev.max_abs_err), n + prev.outputs
-            cov = cov + prev.coverage
-        out.append(Parity("gang_gc", err, n, cov))
+        parts.append((*_diff([(ra, rb)] + list(zip(ta, tb))),
+                      _coverage(ra[args[5] == 1])))
+    out.append(_merge("gang_gc", parts))
 
     parts = []
     cases = [(fp, None)]
@@ -498,6 +600,39 @@ def table_batch(rng: np.random.Generator, pool: KeyPool, B: int,
     q_hi, q_lo = _pool_lanes(rng, pool, B, 2 * n_ways + 1, True)
     return dict(q_hi=q_hi, q_lo=q_lo,
                 q_cls=CLASSES[rng.integers(0, len(CLASSES), B)])
+
+
+TABLE_RECORD_CORNERS = ("one_set_big_batch", "1_way", "8_ways", "64_ways",
+                        "16_sets", "padding_only")
+
+
+def table_record_corners(rng: np.random.Generator, B: int):
+    """(planes, queries) cases at the corners of K6's set-owning design, in
+    the order of ``TABLE_RECORD_CORNERS``: 4 x B queries all in one set of
+    a 1024 x 4 table (at B = 1024 the owning block's list of 1024 overflows,
+    so it takes them in chunks), repeating 64 keys under mixed classes;
+    :func:`table_batch` on 256 x 1, 128 x 8 and 64 x 64 (lanes at a stride
+    of 32) and on 16 x 4 (fewer sets than blocks); and a batch of no
+    queries, which the op pads to a bucket of padding only."""
+    out = []
+    S, W = 1024, 4
+    pool = key_pool(rng, 4 * S, S)
+    s = int(rng.integers(0, S))
+    k_hi = rng.integers(0, 2**32, 64, dtype=np.uint64).astype(np.uint32)
+    k_lo = ((rng.integers(0, 2**32, 64, dtype=np.uint64).astype(np.uint32)
+             & ~np.uint32(S - 1)) | np.uint32(s))
+    k = rng.integers(0, 64, 4 * B)
+    out.append((table_planes(rng, pool, S, W), dict(
+        q_hi=k_hi[k], q_lo=k_lo[k],
+        q_cls=CLASSES[rng.integers(0, len(CLASSES), 4 * B)])))
+    for S, W in ((256, 1), (128, 8), (64, 64), (16, 4)):
+        pool = key_pool(rng, 4 * S * W, S)
+        out.append((table_planes(rng, pool, S, W),
+                    table_batch(rng, pool, B, W)))
+    empty = np.zeros(0, np.uint32)
+    out.append((table_planes(rng, key_pool(rng, 64, 16), 16, 4),
+                dict(q_hi=empty, q_lo=empty, q_cls=np.zeros(0, np.int32))))
+    return out
 
 
 def window(rng: np.random.Generator, pool: KeyPool, U: int,
@@ -596,9 +731,10 @@ def check_table_kernels(keys: dict, records, fastpaths, scans,
     a ``slot_map`` (K1 runs with and without the route); ``records`` and
     ``fastpaths`` are lists of (table planes, batch) cases of
     ``witness_record`` (K6) and ``fastpath_batch`` (K7), ``scans`` a list
-    of ``conflict_scan`` (K8) cases.  Each K7 case runs as the op pads it
-    and trimmed to its real batch and window (U may be 0).  Returns one :class:`Parity` per
-    kernel, over all its cases."""
+    of ``conflict_scan`` (K8) cases.  Each K6 and K7 case runs as the op
+    pads it and trimmed to its real batch (K7 also to its window; B and U
+    may be 0).  Returns one :class:`Parity` per kernel, over all its
+    cases."""
     device = torch.device(device)
     hi, lo, sm = ops._to_device(device, keys["hi"], keys["lo"],
                                 keys["slot_map"])
@@ -613,13 +749,15 @@ def check_table_kernels(keys: dict, records, fastpaths, scans,
     parts = []
     for planes, q in records:
         base = ref.witness_table_from_numpy(planes, device)
-        args = ops.table_record_operands(base, **q)
-        ta, tb, tc = base.clone(), base.clone(), base.clone()
-        ra = ops.witness_record_cuda(ta, *args)
-        rb = ref.witness_record_plain(tb, *args)
-        outcome = ref.witness_outcomes_plain(tc, *args)
-        parts.append((*_diff([(ra, rb)] + list(zip(ta, tb))),
-                      _coverage(outcome[args[3] == 1], N_CODES)))
+        padded = ops.table_record_operands(base, **q)
+        trimmed = [a[:len(q["q_hi"])] for a in padded]
+        for args in (padded, trimmed):   # as the op pads them, and the real
+            ta, tb, tc = base.clone(), base.clone(), base.clone()
+            ra = ops.witness_record_cuda(ta, *args)
+            rb = ref.witness_record_plain(tb, *args)
+            outcome = ref.witness_outcomes_plain(tc, *args)
+            parts.append((*_diff([(ra, rb)] + list(zip(ta, tb))),
+                          _coverage(outcome[args[3] == 1], N_CODES)))
     out.append(_merge("witness_record", parts))
 
     parts = []
@@ -841,14 +979,14 @@ def check_txn_kernels(probe_planes, probes, gcs, seqs,
     return out
 
 
-__all__ = ["BRANCHES", "CLASSES", "GC_EMPTY", "GC_HIT", "GC_MISS",
-           "GC_REPEAT", "GC_STALE", "KeyPool", "N_CODES", "Parity",
-           "SCAN_COMMUTES", "SCAN_HIT", "TXN_DUP_KEY", "TXN_OWN_PASS",
-           "TXN_PADDED", "TXN_SAME_SET", "check_kernels",
+__all__ = ["BRANCHES", "CLASSES", "GC_CORNERS", "GC_EMPTY", "GC_HIT",
+           "GC_MISS", "GC_REPEAT", "GC_STALE", "KeyPool", "N_CODES", "Parity",
+           "SCAN_COMMUTES", "SCAN_HIT", "TABLE_RECORD_CORNERS", "TXN_DUP_KEY",
+           "TXN_OWN_PASS", "TXN_PADDED", "TXN_SAME_SET", "check_kernels",
            "check_table_kernels", "check_txn_kernels", "cls_of_rpc",
            "fastpath_batch", "fastpath_corners", "gang_planes", "gc_batch",
-           "gc_codes", "gc_entries", "gc_planes", "group_batch", "held",
-           "key_pool", "launches_per_call", "reason_coverage",
+           "gc_codes", "gc_corners", "gc_entries", "gc_planes", "group_batch",
+           "held", "key_pool", "launches_per_call", "reason_coverage",
            "record_batch", "scan_batch", "scan_codes", "table_batch",
            "table_fastpath_batch", "table_fastpath_corners", "table_planes",
-           "trace", "txn_chain", "txn_codes", "window"]
+           "table_record_corners", "trace", "txn_chain", "txn_codes", "window"]

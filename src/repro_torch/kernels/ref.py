@@ -164,8 +164,11 @@ class GangTable(NamedTuple):
 
     @staticmethod
     def empty(n_sets: int, n_ways: int, n_lanes: int = 1,
-              device="cpu") -> "GangTable":
+              device="cuda") -> "GangTable":
+        """An empty gang, on the card unless the caller asks for another
+        device."""
         assert n_sets & (n_sets - 1) == 0, "n_sets must be a power of two"
+        device = resolve_device(device)
         R = n_lanes * n_sets
         return GangTable(*(torch.zeros((R, n_ways), dtype=torch.int32,
                                        device=device) for _ in PLANES))

@@ -36,6 +36,7 @@ def case(request):
         gc=parity.gc_batch(rng, planes, S, 64, 24),
         fp=parity.fastpath_batch(rng, pool, 100, NS, CAP, F, L, 32, 24),
         corners=parity.fastpath_corners(rng, 1000, NS, 1024, F, L, 32, 24),
+        gc_corners=parity.gc_corners(rng, planes, S, 24),
     )
 
 
@@ -45,10 +46,15 @@ def test_kernel_matches_plain_version(cuda, case, kernel):
     """gang_fastpath also at its corners: every op in one shard, shards
     with no op, rings filled to count + appends = CAP, hot keys that
     commute or not; B = 1000, padded by the op and as given; and B = 3000
-    in one shard of a 4096-slot ring, which the kernel takes in chunks."""
+    in one shard of a 4096-slot ring, which the kernel takes in chunks.
+    gang_gc also at its corners, padded and as given: identical entries,
+    one row's W ways cleared by W rpcs of one key, entries only in lanes
+    that do not age, no aging, no entries, and 4096 entries in one aged
+    lane and over eight lanes."""
     results = parity.check_kernels(case["planes"], S, case["rec"],
                                    case["grp"], case["gc"], case["fp"], F,
-                                   device=cuda, fp_corners=case["corners"])
+                                   device=cuda, fp_corners=case["corners"],
+                                   gc_corners=case["gc_corners"])
     torch.cuda.synchronize()
     got = {r.name: r for r in results}[kernel]
     assert got.outputs > 0
@@ -62,7 +68,10 @@ def table_case(request):
     window that are not tile multiples, and K7's corners: no window, 777
     entries with repeated keys (256x1, 128x8), 2500 entries (more than one
     shared-memory table, 16x2), B = 1000; and B = 4000 on 1x4 (1024
-    entries) and 4x2 (2500), which each block takes in chunks."""
+    entries) and 4x2 (2500), which each block takes in chunks.  K6's
+    corners: 4096 queries in one set of 1024x4 (taken in chunks), 256x1,
+    128x8, 64x64 (ways at a stride of 32), 16x4 (fewer sets than blocks)
+    and a batch of padding only."""
     rng = np.random.default_rng(request.param)
     records, fastpaths = [], []
     for S, W in ((64, 4), (16, 2), (128, 8)):
@@ -72,6 +81,7 @@ def table_case(request):
         fastpaths.append((planes, parity.table_fastpath_batch(
             rng, pool, 300, 100, W, 4)))
     fastpaths += parity.table_fastpath_corners(rng, 1000, 4, 2500)
+    records += parity.table_record_corners(rng, 1024)
     scans = [parity.scan_batch(rng, pool, 1000, 777),
              parity.scan_batch(rng, pool, 33, 1)]
     keys = dict(hi=pool.hi, lo=pool.lo,
@@ -91,19 +101,30 @@ def test_table_kernel_matches_plain_version(cuda, table_case, kernel):
 
 
 def test_redesigned_kernels_launch_once_per_call(cuda, case, table_case):
-    """fastpath_record_scan launches only its own kernel (no sort);
-    gang_fastpath launches its own kernel and then what K2's record stage
-    launches alone."""
+    """fastpath_record_scan, witness_record and gang_gc each launch only
+    their own kernel (no sort); gang_fastpath launches its own kernel and
+    then what K2's record stage launches alone."""
     from repro_torch.kernels import ops, ref
+
+    def only(fn, kernel):
+        per_call = parity.launches_per_call(fn)
+        assert len(per_call) == 1, per_call
+        (name, n), = per_call.items()
+        assert kernel in name and 0 < n <= 1, per_call
 
     planes, fp = table_case[2][0]
     table = ref.witness_table_from_numpy(planes, cuda)
     args = ops.table_fastpath_operands(table, **fp)
-    per_call = parity.launches_per_call(
-        lambda: ops.fastpath_record_scan_cuda(table, *args))
-    assert len(per_call) == 1, per_call
-    (name, n), = per_call.items()
-    assert "fastpath_batch_kernel" in name and 0 < n <= 1, per_call
+    only(lambda: ops.fastpath_record_scan_cuda(table, *args),
+         "fastpath_batch_kernel")
+    planes, q = table_case[1][0]
+    table = ref.witness_table_from_numpy(planes, cuda)
+    args = ops.table_record_operands(table, **q)
+    only(lambda: ops.witness_record_cuda(table, *args),
+         "witness_record_kernel")
+    gang = ref.gang_from_numpy(case["planes"], cuda)
+    args = ops.gc_operands(gang, S, **case["gc"])
+    only(lambda: ops.gang_gc_cuda(gang, S, *args, True), "gang_gc_kernel")
 
     gang = ref.gang_from_numpy(case["planes"], cuda)
     fpc = dict(case["fp"])

@@ -126,7 +126,7 @@ def test_wrapper_refuses_devices_it_has_no_kernel_for():
 def test_cuda_launcher_refuses_cpu_tensors():
     from repro_torch.kernels import GangTable, ops
 
-    table = GangTable.empty(16, 2, 1)
+    table = GangTable.empty(16, 2, 1, device="cpu")
     operands = ops.record_operands(table, 16, np.array([1]), np.array([2]),
                                    [0], [0], [0])
     with pytest.raises(ValueError, match="CUDA launcher"):
@@ -183,17 +183,19 @@ def test_kernel_sources_compile_into_a_hashed_ignored_directory():
         "witness_seq.cu"}
 
 
-@pytest.mark.parametrize("name", ["gang_from_numpy", "ring_from_numpy"])
+@pytest.mark.parametrize("name", ["gang_from_numpy", "ring_from_numpy",
+                                  "GangTable.empty"])
 def test_state_carrier_lands_on_the_card_by_default(name):
     """The JAX package's gang and ring state, carried into the port with no
-    device named, lands on the card; without one it raises rather than
-    falling back to the CPU."""
-    from repro_torch.kernels import gang_from_numpy, ring_from_numpy
+    device named, and an empty gang made with none, land on the card;
+    without one they raise rather than falling back to the CPU."""
+    from repro_torch.kernels import GangTable, gang_from_numpy, ring_from_numpy
 
     plane = np.zeros((4, 2), np.uint32)
     call = {"gang_from_numpy": lambda: gang_from_numpy([plane] * 6),
             "ring_from_numpy": lambda: ring_from_numpy(plane, plane,
-                                                       plane.view(np.int32))}
+                                                       plane.view(np.int32)),
+            "GangTable.empty": lambda: GangTable.empty(4, 2, 2)}
     if torch.cuda.is_available():
         assert all(t.device.type == "cuda" for t in call[name]())
     else:

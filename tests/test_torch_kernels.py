@@ -26,7 +26,8 @@ from repro_torch.kernels import (
     ring_from_numpy,
     ring_to_numpy,
 )
-from repro_torch.kernels import parity
+from repro_torch.kernels import ops, parity
+from repro_torch.kernels.ops import gc_operands
 from repro_torch.kernels.ref import keyhash2x32
 
 L, S, W = 4, 64, 4
@@ -168,23 +169,99 @@ def test_gang_record_groups_same_row_keys_take_distinct_ways():
 # ---------------------------------------------------------------------------
 # K4: rpc-matched gc with aging
 # ---------------------------------------------------------------------------
+def _check_gang_gc(planes, e, do_age, n_lanes=L):
+    """One gang gc through the port's op on the CPU against
+    ``ref_gang_gc`` on the distinct entries (each repeat takes its first
+    copy's bit: decisions are taken against the pre-gc table); returns the
+    cleared bits."""
+    table = gang_from_numpy(planes, device="cpu")
+    clr, table = gang_gc(table, S, e["g_hi"], e["g_lo"], e["g_rpc_hi"],
+                         e["g_rpc_lo"], e["g_lane"], e["aged_lanes"],
+                         do_age=do_age)
+    keys = np.stack([np.asarray(e["g_lane"]).astype(np.uint32), e["g_hi"],
+                     e["g_lo"], e["g_rpc_hi"], e["g_rpc_lo"]])
+    uniq, first, inverse = np.unique(keys, axis=1, return_index=True,
+                                     return_inverse=True)
+    entries = [(int(e["g_lane"][i]), (int(e["g_hi"][i]), int(e["g_lo"][i])),
+                (int(e["g_rpc_hi"][i]), int(e["g_rpc_lo"][i])))
+               for i in first]
+    aged = list(np.flatnonzero(e["aged_lanes"])) if do_age else []
+    want, want_table = ref_gang_gc(JaxGangTable(*planes), S, entries, aged)
+    assert clr.shape == (len(e["g_hi"]),)
+    np.testing.assert_array_equal(
+        clr, np.asarray(want, np.int32)[inverse.reshape(-1)])
+    _planes_equal(table, want_table)
+    return clr
+
+
 @pytest.mark.parametrize("do_age", [True, False])
 @pytest.mark.parametrize("seed", SEEDS)
 def test_gang_gc_matches_ref_with_dedup_entries(seed, do_age):
     rng, _pool, planes = _state(seed)
     e = parity.gc_batch(rng, planes, S, 80, N_RPCS)
-    table = gang_from_numpy(planes, device="cpu")
-    clr, table = gang_gc(table, S, e["g_hi"], e["g_lo"], e["g_rpc_hi"],
-                         e["g_rpc_lo"], e["g_lane"], e["aged_lanes"],
-                         do_age=do_age)
-    entries = [(int(e["g_lane"][i]), (int(e["g_hi"][i]), int(e["g_lo"][i])),
-                (int(e["g_rpc_hi"][i]), int(e["g_rpc_lo"][i])))
-               for i in range(len(e["g_hi"]))]
-    aged = list(np.flatnonzero(e["aged_lanes"])) if do_age else []
-    want, want_table = ref_gang_gc(JaxGangTable(*planes), S, entries, aged)
-    np.testing.assert_array_equal(clr, np.asarray(want, np.int32))
-    _planes_equal(table, want_table)
+    clr = _check_gang_gc(planes, e, do_age)
     assert 0 < int(clr.sum()) < len(clr), "clears and stale misses both"
+
+
+# The corners of the row-owning kernel, on a gang of eight lanes (entries
+# spread over eight lanes need them): the two big corners' 4096 entries
+# are one aged block's whole tile at 64 sets (on the card, one block walks
+# them all).
+GC_LANES = 8
+
+
+def _gc_corners(seed):
+    rng = np.random.default_rng(seed)
+    pool = parity.key_pool(rng, 4 * S, S)
+    planes = parity.gang_planes(rng, pool, GC_LANES, S, W, N_RPCS, fill=0.55)
+    return parity.gc_corners(rng, planes, S, N_RPCS)
+
+
+@pytest.mark.parametrize("corner", range(len(parity.GC_CORNERS)),
+                         ids=list(parity.GC_CORNERS))
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_gc_corner_matches_ref(seed, corner):
+    planes, e, do_age = _gc_corners(seed)[corner]
+    clr = _check_gang_gc(planes, e, do_age)
+    if parity.GC_CORNERS[corner] == "identical_entries":
+        # The pre-gc rule: both copies of a held entry report 1.
+        assert int(clr.sum()) % 2 == 0 and clr.sum() > 0
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_gc_corners_have_their_shape(seed):
+    cases = dict(zip(parity.GC_CORNERS, _gc_corners(seed)))
+    for name, (planes, e, do_age) in cases.items():
+        assert planes[2].shape == (GC_LANES * S, W), name
+        assert do_age == (name != "no_aging"), name
+        lanes = np.asarray(e["g_lane"])
+        aged = np.flatnonzero(e["aged_lanes"])
+        if name == "identical_entries":
+            keys = np.stack([lanes.astype(np.uint32), e["g_hi"], e["g_lo"],
+                             e["g_rpc_hi"], e["g_rpc_lo"]])
+            _, n = np.unique(keys, axis=1, return_counts=True)
+            assert (n == 2).all()
+        elif name == "one_row_all_ways":
+            rows = lanes * S + (e["g_lo"] & np.uint32(S - 1))
+            assert len(lanes) == W and np.unique(rows).size == 1
+            assert np.unique(e["g_rpc_lo"]).size == W
+            assert np.unique(np.stack([e["g_hi"], e["g_lo"]]),
+                             axis=1).shape[1] == 1
+            assert (planes[2][rows[0]] > 0).all() and lanes[0] in aged
+        elif name == "non_aged_lanes":
+            assert len(lanes) and aged.size
+            assert not set(lanes.tolist()) & set(aged.tolist())
+        elif name == "no_entries":
+            assert len(lanes) == 0 and aged.size
+        elif name.startswith("big"):
+            keys = np.stack([lanes.astype(np.uint32), e["g_hi"], e["g_lo"],
+                             e["g_rpc_hi"], e["g_rpc_lo"]])
+            assert np.unique(keys, axis=1).shape[1] == 4096
+            want = 1 if name == "big_one_lane" else 8
+            assert np.unique(lanes).size == want, name
+            assert set(lanes.tolist()) & set(aged.tolist())
+            if want == 8:
+                assert set(lanes.tolist()) - set(aged.tolist())
 
 
 def test_gang_gc_identical_entries_both_report_cleared():
@@ -368,6 +445,21 @@ def test_gang_fastpath_overflow_raises():
 
 
 def test_out_of_range_lane_raises():
-    table = GangTable.empty(S, W, L)
+    table = GangTable.empty(S, W, L, device="cpu")
     with pytest.raises(ValueError, match="lanes out of range"):
         gang_record(table, S, [1], [2], [L], [0], [0])
+
+
+@pytest.mark.parametrize("aged,match", [([1, 3, 1], "repeats a lane"),
+                                        ([0, L], "out of range")],
+                         ids=["repeated", "out_of_range"])
+def test_gang_gc_cuda_refuses_bad_aged_lanes(aged, match):
+    """K4 gives each aged tile one owning block and marks the aged lanes in
+    a shared bitmap, so its wrapper checks ``aged_idx`` before it launches
+    (here, before it refuses the CPU tensors)."""
+    table = GangTable.empty(S, W, L, device="cpu")
+    args = list(gc_operands(table, S, [1], [2], [3], [4], [0],
+                            np.zeros(L, np.int32)))
+    args[-1] = torch.tensor(aged, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        ops.gang_gc_cuda(table, S, *args, True)

@@ -33,6 +33,7 @@ from repro_torch.kernels import (
     dispatch_count,
     fastpath_batch,
     keyhash2x32,
+    ops,
     parity,
     ref,
     reset_dispatch_count,
@@ -77,18 +78,68 @@ def _lanes(rng, n):
 # ---------------------------------------------------------------------------
 # K6: witness_record
 # ---------------------------------------------------------------------------
+def _check_record(planes, q):
+    """One witness_record through the port's op on the CPU against
+    ``ref_witness_record``; returns the accept bits."""
+    acc, table = witness_record(witness_table_from_numpy(planes, "cpu"),
+                                q["q_hi"], q["q_lo"], q["q_cls"])
+    want, want_table = _oracle_record(planes, q["q_hi"], q["q_lo"],
+                                      q["q_cls"])
+    assert acc.shape == (len(q["q_hi"]),)
+    np.testing.assert_array_equal(acc, want)
+    _tables_equal(table, want_table)
+    return acc
+
+
 @pytest.mark.parametrize("S,W", GEOMETRIES, ids=lambda v: str(v))
 @pytest.mark.parametrize("seed", SEEDS)
 def test_witness_record_matches_ref_with_classes(seed, S, W):
     rng, pool, planes = _case(seed, S, W)
     q = parity.table_batch(rng, pool, 512 if S > 16 else 200, W)
-    acc, table = witness_record(witness_table_from_numpy(planes, "cpu"),
-                                q["q_hi"], q["q_lo"], q["q_cls"])
-    want, want_table = _oracle_record(planes, q["q_hi"], q["q_lo"],
-                                      q["q_cls"])
-    np.testing.assert_array_equal(acc, want)
-    _tables_equal(table, want_table)
+    acc = _check_record(planes, q)
     assert 0 < acc.sum() < len(acc)
+
+
+# The corners of the set-owning kernel at a batch of RECORD_CORNER_B (the
+# card runs them at 1024, where the one-set batch of 4 x B is taken in
+# chunks).
+RECORD_CORNER_B = 200
+
+
+@pytest.mark.parametrize("corner", range(len(parity.TABLE_RECORD_CORNERS)),
+                         ids=list(parity.TABLE_RECORD_CORNERS))
+@pytest.mark.parametrize("seed", SEEDS)
+def test_witness_record_corner_matches_ref(seed, corner):
+    rng = np.random.default_rng(seed)
+    planes, q = parity.table_record_corners(rng, RECORD_CORNER_B)[corner]
+    acc = _check_record(planes, q)
+    if len(acc):
+        assert 0 < acc.sum() < len(acc)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_witness_record_corners_have_their_shape(seed):
+    rng = np.random.default_rng(seed)
+    cases = dict(zip(parity.TABLE_RECORD_CORNERS,
+                     parity.table_record_corners(rng, RECORD_CORNER_B)))
+    shapes = {"one_set_big_batch": (1024, 4, 4 * RECORD_CORNER_B),
+              "1_way": (256, 1, RECORD_CORNER_B),
+              "8_ways": (128, 8, RECORD_CORNER_B),
+              "64_ways": (64, 64, RECORD_CORNER_B),
+              "16_sets": (16, 4, RECORD_CORNER_B), "padding_only": (16, 4, 0)}
+    for name, (planes, q) in cases.items():
+        S, W, B = shapes[name]
+        assert all(np.asarray(p).shape == (S, W) for p in planes), name
+        assert len(q["q_hi"]) == len(q["q_lo"]) == len(q["q_cls"]) == B
+        assert (np.asarray(planes[2]) > 0).any(), name
+    q = cases["one_set_big_batch"][1]
+    assert np.unique(q["q_lo"] & np.uint32(1023)).size == 1
+    assert np.unique(q["q_cls"]).size > 1
+    # The op pads the empty batch to a bucket of padding only.
+    planes, q = cases["padding_only"]
+    args = ops.table_record_operands(witness_table_from_numpy(planes, "cpu"),
+                                     **q)
+    assert args[0].shape == (16,) and int(args[3].sum()) == 0
 
 
 @pytest.mark.parametrize("seed", SEEDS)
