@@ -23,7 +23,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    pads them and as given: identical entries (both report 1), one row whose
    4 ways hold one key under 4 rpcs, entries only in lanes that do not
    age, no aging, no entries with aging, and 4096 entries in one aged lane
-   and over eight lanes.
+   and over eight lanes.  gang_record (K2) also meets the corners of its
+   row-owning design, as the op pads them and as given: 3072 queries in
+   one row (more than the block's list of 2048 holds, so taken in chunks),
+   DUP and CONFLICT of one key in both batch orders and beside a key held
+   twice under commuting rpcs in either way order, a row driven FULL, 1
+   and 64 ways, 2 lanes x 16 sets (fewer rows than blocks), padding only,
+   no counters, and K3's record stage of 1024 ops x 3 lanes with a tenth
+   padding.
 2. The slice end to end: ``ShardedCluster(n_shards=64, f=3,
    geometry=WitnessGeometry(1024, 4), sync_batch=50,
    witness_backend="device")`` on the card, driven by the update half of
@@ -45,7 +52,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    collision-heavy parity cases (B = 512) and on a pre-filled 1024 x 4
    table with classes; fastpath_record_scan (K7) at 1024 x 4 and 1024 x 8,
    B = 4096, against a 1024-entry window of mixed classes; conflict_scan
-   (K8) at B = 4096, U = 1024 and at B = 1000, U = 777.  And the three
+   (K8) at B = 4096, U = 1024 and at B = 1000, U = 777, and at the
+   corners of its table join (B = 4096, U = 1024 unless named): no
+   window, repeated keys under classes that commute and that do not, the
+   all-ones key (the table's empty marker), 3072 entries (three
+   shared-memory tables), legacy 0/1 validity, classes outside the
+   matrix, and B = 1000.  And the three
    transaction and baseline kernels, outputs and all three planes bit for
    bit: txn_probe (K9) as a chain of 2000 probes of 1..16 keys over a
    1024 x 4 table about 90% full (conflicts, FULL rejects that leave the
@@ -104,11 +116,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    the fused batches' wall time, the device's idle share during one more
    fused batch, and the host's self time by source file in another.  K1
    and K6-K8 are timed the same way at phase 5's shapes, K9-K11 at phase
-   6's.  For the four kernels redesigned as one launch, the kernels each
-   call launches under the profiler (fastpath_record_scan, witness_record
-   and gang_gc: their own kernel only; gang_fastpath: its own kernel and
-   what K2's record stage launches alone) and gang_fastpath's own launch's
-   device time apart from that stage.  Device times count each kernel per
+   6's, and beside K11 the least chain of as many serial steps
+   (``csrc/chain_probe.cu``, a probe and not a port: one thread, a
+   dependent load and a store a step, in global and in shared memory).
+   For the kernels redesigned as one launch, the kernels each call
+   launches under the profiler (fastpath_record_scan, witness_record,
+   gang_gc, conflict_scan, and gang_record both as K3's record stage and
+   as the op: their own kernel only; gang_fastpath: its own kernel and
+   gang_record's, and no other) and gang_fastpath's own launch's device
+   time apart from that stage.  Device times count each kernel per
    launch the trace caught.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``;
@@ -184,9 +200,11 @@ def phase_parity(np, parity, card, device, sync):
     check((fp["tail_slot"] + fp["count"] > CAP).any(), "no ring span wraps")
     corners = parity.fastpath_corners(rng, 1000, NS, CAP, F, L, 256, 256)
     gc_corners = parity.gc_corners(rng, planes, N_SETS, 256)
+    rec_corners = parity.gang_record_corners(rng, BATCH, F)
     results = parity.check_kernels(planes, N_SETS, rec, grp, gc, fp, F,
                                    device=device, fp_corners=corners,
-                                   gc_corners=gc_corners)
+                                   gc_corners=gc_corners,
+                                   rec_corners=rec_corners)
     sync()
     say(card, "parity gang_fastpath corners (B = 1000, as padded and as "
               "given): every op in shard 63; 32 shards with no op and the "
@@ -200,6 +218,14 @@ def phase_parity(np, parity, card, device, sync):
                           f"lanes)"
                           for name, (_p, g, age) in zip(parity.GC_CORNERS,
                                                         gc_corners)))
+    say(card, "parity gang_record corners (as padded and as given; rep_f "
+              "as K3's stage): "
+              + ", ".join(f"{name} ({c['planes'][2].shape[0] // c['n_sets']}"
+                          f"x{c['n_sets']}x{c['planes'][2].shape[1]}, "
+                          f"{np.asarray(c['rec']['lanes']).size} copies"
+                          f"{'' if c['counters'] else ', no counters'})"
+                          for name, c in zip(parity.GANG_RECORD_CORNERS,
+                                             rec_corners)))
     for r in results:
         say(card, f"parity {r.name}: {r.outputs} integers, "
                   f"max_abs_err {r.max_abs_err}, outcomes by value "
@@ -259,6 +285,8 @@ def phase_table_parity(np, parity, card, device, sync, key_lanes):
                               rng, pool, TABLE_BATCH, WINDOW, W, N_SHARDS)))
     scans = [parity.scan_batch(rng, pool, TABLE_BATCH, WINDOW),
              parity.scan_batch(rng, pool, 1000, 777)]
+    scan_corners = parity.scan_corners(rng, TABLE_BATCH, WINDOW)
+    scans += scan_corners
     fastpaths += parity.table_fastpath_corners(
         np.random.default_rng(SEED + 10), 1000, N_SHARDS, 3 * WINDOW)
     record_corners = parity.table_record_corners(
@@ -278,6 +306,11 @@ def phase_table_parity(np, parity, card, device, sync, key_lanes):
               f"shared-memory tables) at 16x2; B = 4000 (each block's "
               f"queries taken in chunks) at 1x4 against 1024 entries and "
               f"at 4x2 against {3 * WINDOW}")
+    say(card, "parity conflict_scan corners: "
+              + ", ".join(f"{name} (B = {len(sc['q_hi'])}, U = "
+                          f"{len(sc['w_hi'])})"
+                          for name, sc in zip(parity.SCAN_CORNERS,
+                                              scan_corners)))
     for r in results:
         say(card, f"parity {r.name}: {r.outputs} integers, "
                   f"max_abs_err {r.max_abs_err}, outcomes by code "
@@ -1105,18 +1138,22 @@ def _device_ms(torch, fn, iters=20, before=None, only=None):
     return total / 1e3 or None
 
 
-def _one_launch(card, parity, name, fn, kernel):
-    """Check that each call of ``fn`` launches ``kernel`` and nothing else,
-    by the kernels a profiler trace of 20 calls caught (a share in (0, 1]:
-    a trace may miss launches, never add one); returns the shares."""
+def _one_launch(card, parity, name, fn, *kernels):
+    """Check that each call of ``fn`` launches each of ``kernels`` once and
+    nothing else, by the kernels a profiler trace of 20 calls caught (a
+    share in (0, 1] each: a trace may miss launches, never add one);
+    returns the shares."""
     per_call = parity.launches_per_call(fn)
-    got, n_own = (next(iter(per_call.items())) if len(per_call) == 1
-                  else ("", 0))
-    check(kernel in got and 0 < n_own <= 1,
-          f"{name} is not one launch of its own kernel: {per_call}")
-    say(card, f"{name} launches per call: {n_own:g} of {kernel} and no "
-              f"other (the trace caught {n_own * 20:.0f} launches in 20 "
-              f"calls)")
+    shares = [[n for k, n in per_call.items() if kernel in k]
+              for kernel in kernels]
+    check(len(per_call) == len(kernels)
+          and all(len(n) == 1 and 0 < n[0] <= 1 for n in shares),
+          f"{name} is not one launch each of {kernels}: {per_call}")
+    say(card, f"{name} launches per call: "
+              + ", ".join(f"{n[0]:g} of {k}" for n, k in zip(shares, kernels))
+              + " and no other (the trace caught "
+              + ", ".join(f"{n[0] * 20:.0f}" for n in shares)
+              + " launches in 20 calls)")
     return per_call
 
 
@@ -1215,24 +1252,34 @@ def phase_times(np, torch, dev_cluster, card, device):
     # the batch's B * f witness copies.
     t_rows = on_card(rows_e.astype(np.int32))
     t_qh, t_ql = on_card(qh), on_card(ql)
-    ones_e = torch.ones(BATCH * F, dtype=torch.int32, device=dev)
 
     def stage():
-        return kops._record_runs(table, N_SETS, t_rows, F, t_qh, t_ql, r_hi,
-                                 r_lo, k_cls, counters)
+        return kops._record_launch(table, N_SETS, t_rows, F, t_qh, t_ql,
+                                   r_hi, r_lo, k_cls, counters)
 
     def stage_plain():
-        rep = lambda x: torch.repeat_interleave(x, F)  # noqa: E731
-        rsn = ref.record_rows_plain(table, t_rows, rep(t_qh), rep(t_ql),
-                                    rep(r_hi), rep(r_lo), rep(k_cls), ones_e)
-        ref.reason_counts_update(counters, t_rows // N_SETS, rsn, ones_e)
-        return rsn
+        return ref.record_copies_plain(table, N_SETS, t_rows, F, t_qh, t_ql,
+                                       r_hi, r_lo, k_cls, counters)
 
     nbytes = (BATCH * F * 4 * 2          # rows in, reasons out
               + BATCH * 5 * 4            # q_hi, q_lo, rpc_hi, rpc_lo, class
               + n_cls * 4 + _probe_bytes(np, rows_e, W) + once(stage))
     out["gang_record"] = timed(stage, stage_plain, nbytes,
                                BATCH * F * W * 10)
+    restore()
+    out["gang_record"]["launches_per_call"] = _one_launch(
+        card, parity, "gang_record (K3's record stage)", stage,
+        "gang_record_kernel")
+    # The standalone op (DeviceWitness.record_batch): hash, rows and record
+    # in the same one launch.
+    rec = parity.record_batch(np.random.default_rng(SEED + 12), pool, BATCH,
+                              L, N_SETS, 256)
+    rargs = kops.record_operands(table0, N_SETS, **rec)
+    restore()
+    out["gang_record"]["op_launches_per_call"] = _one_launch(
+        card, parity, "gang_record (the op)",
+        lambda: kops.gang_record_cuda(table, N_SETS, *rargs, counters),
+        "gang_record_kernel")
 
     # K3: the whole fused batch (its time includes K2's record stage).
     def run_fp(fn):
@@ -1270,33 +1317,17 @@ def phase_times(np, torch, dev_cluster, card, device):
         lambda: run_fp(kops.gang_fastpath_cuda),
         lambda: run_fp(ref.gang_fastpath_plain), nbytes, nops)
     # Its own launch (hash, route, ring scan, in-batch check, append) apart
-    # from K2's record stage and that stage's sort.
+    # from K2's record stage.
     restore()
     t["stage_device_ms"] = _device_ms(
         torch, lambda: run_fp(kops.gang_fastpath_cuda),
         only="gang_fastpath_kernel")
-    # Launches per call: the whole op against K2's record stage alone.  A
-    # trace may miss launches, never add one: one launch a call reads in
-    # (0, 1], and a second would read above 1 unless half were missed.
+    # Launches per call: K3's own kernel and K2's, one each, and no other
+    # (no sort, no gather, no fill).
     restore()
-    per_call = parity.launches_per_call(
-        lambda: run_fp(kops.gang_fastpath_cuda))
-    restore()
-    record = parity.launches_per_call(stage)
-    own = sorted(set(per_call) - set(record))
-    check(len(own) == 1 and "gang_fastpath_kernel" in own[0]
-          and 0 < per_call[own[0]] <= 1
-          and set(record) <= set(per_call),
-          f"gang_fastpath's stages before the record are not one launch: "
-          f"{per_call} against the record stage's {record}")
-    t["launches_per_call"] = per_call
-    n_rec = sum(max(1, round(n)) for n in record.values())
-    say(card, f"gang_fastpath launches per call: {per_call[own[0]]:g} of its "
-              f"own kernel (the trace caught {per_call[own[0]] * 20:.0f} "
-              f"launches in 20 calls), then the {n_rec} that K2's record "
-              f"stage launches alone (caught as {sum(record.values()):g} "
-              f"per call, here "
-              f"{sum(per_call.values()) - per_call[own[0]]:g}); no other")
+    t["launches_per_call"] = _one_launch(
+        card, parity, "gang_fastpath", lambda: run_fp(kops.gang_fastpath_cuda),
+        "gang_fastpath_kernel", "gang_record_kernel")
 
     # K4: one sync round's gc_many: entries at a shard's f aged lanes.
     gc = parity.gc_batch(rng, planes, N_SETS, 150, 256)
@@ -1476,6 +1507,9 @@ def phase_table_times(np, torch, card, device, key_lanes):
         lambda: kops.conflict_scan_cuda(*sargs),
         lambda: ref.conflict_scan_plain(*sargs), lambda: None,
         TABLE_BATCH * 16 + WINDOW * 12, nops)
+    out["conflict_scan"]["launches_per_call"] = _one_launch(
+        card, parity, "conflict_scan",
+        lambda: kops.conflict_scan_cuda(*sargs), "conflict_scan_kernel")
     for name, t in out.items():
         dms = ("not measured" if t["device_ms"] is None
                else f"{t['device_ms']:.4f} ms")
@@ -1486,6 +1520,48 @@ def phase_table_times(np, torch, card, device, key_lanes):
                   f"device time {dms} (profiler), plain "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.6f} ms "
                   f"({t['bound'][1]}, {t['bytes']} B, {t['ops']} ops)")
+    return out
+
+
+def _chain_ms(np, torch, rng, dev, B, n_sets, n_ways):
+    """K11's chain bound, measured: ``chain_probe.cu`` runs B dependent
+    steps of the least work a step of K11 does (a load whose address the
+    previous load gave, a store into the same row) by one thread, over a
+    random cycle of the rows of an n_sets x n_ways plane, once in global
+    memory as K11 keeps its table and once staged in shared memory.  Each
+    run's words and the word it ended on are checked against the chain
+    walked on the host."""
+    from repro_torch.kernels import build, ops as kops
+
+    if n_ways < 2:
+        raise ValueError("the chain probe stores into word 1 of a row")
+    fn = build.library("chain_probe").chain_probe_launch
+    fn.argtypes = [build.I, build.I, build.I, build.P, build.P, build.P]
+    fn.restype = build.I
+    order = rng.permutation(n_sets)
+    nxt = np.empty(n_sets, np.int64)
+    nxt[order] = np.roll(order, -1)
+    words0 = np.zeros(n_sets * n_ways, np.int32)
+    words0[::n_ways] = nxt * n_ways
+    want, cur = words0.copy(), 0
+    for b in range(B):
+        want[cur + 1] = b
+        cur = int(want[cur])
+    words = torch.from_numpy(words0).to(dev)
+    end = torch.empty(1, dtype=torch.int32, device=dev)
+    out = {}
+    for where, shared in (("global", 0), ("shared", 1)):
+        def run():
+            rc = fn(B, words.numel(), shared, kops._ptr(words),
+                    kops._ptr(end), kops._stream(dev))
+            if rc != 0:
+                raise RuntimeError(f"chain_probe failed with cudaError {rc}")
+        out[f"chain_{where}_ms"] = _event_ms(torch, run, lambda: None, 50)
+        if (int(end.item()) != cur
+                or not np.array_equal(words.cpu().numpy(), want)):
+            raise AssertionError(f"chain probe ({where}) ended on word "
+                                 f"{int(end.item())} (want {cur}) or "
+                                 f"left other words")
     return out
 
 
@@ -1573,12 +1649,17 @@ def phase_txn_times(np, torch, card, device, shapes):
         lambda: ref.witness_record_seq_plain(table, *sargs), clear, nbytes,
         TABLE_BATCH * TABLE_WAYS * 4)
     out["witness_record_seq"]["chain"] = TABLE_BATCH
+    out["witness_record_seq"].update(
+        _chain_ms(np, torch, rng, dev, TABLE_BATCH, TABLE_SETS, TABLE_WAYS))
     for name, t in out.items():
         dms = ("not measured" if t["device_ms"] is None
                else f"{t['device_ms']:.4f} ms")
         chain = ("" if "chain" not in t else
                  f"; a chain of {t['chain']} dependent steps, "
-                 f"{t['ms'] / t['chain'] * 1e6:.1f} ns a step")
+                 f"{t['ms'] / t['chain'] * 1e6:.1f} ns a step; the least "
+                 f"chain of as many steps (chain_probe.cu, CUDA events) "
+                 f"{t['chain_global_ms']:.4f} ms in global memory, "
+                 f"{t['chain_shared_ms']:.4f} ms in shared memory")
         say(card, f"time {name}: {t['ms']:.4f} ms per call (CUDA events), "
                   f"device time {dms} (profiler), plain "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.3e} ms "

@@ -21,8 +21,9 @@
 //   rule.  The window is staged once per block into a shared-memory
 //   KeyMaskTable (64-bit mixed key -> OR of 1 << class over its valid
 //   entries), so a query's conflict is one probe: (matrix row & mask) != 0,
-//   bit for bit the OR of window_hit.  A window larger than one table is
-//   taken in tiles whose hits are ORed, in the same kernel.  Then a warp per
+//   bit for bit the OR of matrix_bit over its same-key entries.  A window
+//   larger than one table is taken in tiles whose hits are ORed, in the
+//   same kernel.  Then a warp per
 //   set walks that set's queries in batch order (walk_sets, set_walk.cuh,
 //   which K6 shares), lanes holding the ways (a
 //   stride of 32 over wider sets): ballots find a same-key way whose class

@@ -1,5 +1,6 @@
 // The record walk of the set-owning batch kernels: K7 (fastpath_batch.cu)
-// and K6 (witness_table.cu).
+// and K6 (witness_table.cu); K2 (gang_record.cu) walks its gang rows with
+// the same walk_owned and a record rule of its own.
 //
 // Blocks own contiguous ranges of a table's sets (sets_per_block: about
 // kTargetBlocks blocks, so the card is covered) and keep their own queries
@@ -27,10 +28,11 @@ namespace repro_torch {
 
 constexpr int kTargetBlocks = 128;
 
-// Sets per block for a table of n_sets (a power of two): enough blocks to
-// cover the card, and a whole number of sets each.
-inline int sets_per_block(int n_sets) {
-  return n_sets > kTargetBlocks ? n_sets / kTargetBlocks : 1;
+// Sets (or gang rows) per block for n of them: enough blocks to cover the
+// card (kTargetBlocks when n is a multiple of it, at most twice as many
+// otherwise; the launch takes ceil(n / this) blocks).
+inline int sets_per_block(int n) {
+  return n > kTargetBlocks ? n / kTargetBlocks : 1;
 }
 
 // List item j against its set's row, all lanes of the warp together; lane 0
@@ -69,30 +71,40 @@ __device__ __forceinline__ void record_one(const Table& a, const List& sm,
   __syncwarp();
 }
 
-// Record the list's first n items, the block's sets starting at set0: warp
-// w (of kWarps) walks, in list order, the items of the sets it owns.  Every
-// thread of the block calls it, after a barrier that follows the list's
-// last write; the caller places the barrier before the list is reused.
-template <int kWarps, typename Table, typename List>
-__device__ __forceinline__ void walk_sets(const Table& a, const List& sm,
-                                          int set0, int n,
-                                          int32_t* accepted) {
+// The ordered walk of a block's list: warp w (of kWarps) runs record(j), in
+// list order, on each of the list's first n items whose slot (its set or
+// row, less the block's first) is w modulo kWarps, so one slot is only ever
+// touched by one warp and its items resolve in batch order.  Every thread
+// of the block calls it, after a barrier that follows the list's last
+// write; the caller places the barrier before the list is reused.
+template <int kWarps, typename Slot, typename Record>
+__device__ __forceinline__ void walk_owned(int n, Slot slot, Record record) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int base = 0; base < n; base += 32) {
     const int i = base + lane;
-    bool mine = false;
-    if (i < n) {
-      const int set =
-          static_cast<int>(sm.q_lo[i] & static_cast<uint32_t>(a.n_sets - 1));
-      mine = (set - set0) % kWarps == warp;
-    }
+    const bool mine = i < n && slot(i) % kWarps == warp;
     unsigned m = __ballot_sync(kAllLanes, mine);
     while (m != 0u) {
       const int j = base + __ffs(m) - 1;
       m &= m - 1u;
-      record_one(a, sm, j, accepted);
+      record(j);
     }
   }
+}
+
+// Record the list's first n items, the block's sets starting at set0.
+template <int kWarps, typename Table, typename List>
+__device__ __forceinline__ void walk_sets(const Table& a, const List& sm,
+                                          int set0, int n,
+                                          int32_t* accepted) {
+  walk_owned<kWarps>(
+      n,
+      [&](int i) {
+        return static_cast<int>(sm.q_lo[i] &
+                                static_cast<uint32_t>(a.n_sets - 1)) -
+               set0;
+      },
+      [&](int j) { record_one(a, sm, j, accepted); });
 }
 
 }  // namespace repro_torch

@@ -3,16 +3,17 @@
 // own, in thread order), an open-addressed key -> class-mask table, and the
 // list of a block's own items that the two fill.
 //
-// K7 (fastpath_batch.cu) and K3 (gang_fastpath.cu) take a batch in one
-// launch, each block owning a part of the state (a range of witness sets,
-// one shard's ring).  Every block reads the whole batch coalesced, keeps
-// the items it owns in batch order (OwnedList::gather, on block_rank), and
-// answers "does this key meet a staged entry of a class that conflicts
-// with mine?" by one probe of a KeyMaskTable instead of a walk over every
-// staged entry: the table maps a 64-bit mixed key to the OR of 1 << class
-// over its entries, so a conflict is (matrix row & mask) != 0 -- bit for
-// bit the OR, over same-key entries, of the matrix_bit test of
-// keyhash.cuh.
+// K7 (fastpath_batch.cu), K6 (witness_table.cu), K3 (gang_fastpath.cu) and
+// K2 (gang_record.cu) take a batch in one launch, each block owning a part
+// of the state (a range of witness sets or gang rows, one shard's ring).
+// Every block reads the whole batch coalesced and keeps the items it owns
+// in batch order (gather_owned, on block_rank; OwnedList is the list of K3,
+// K6 and K7, K2 keeps its own).  K3, K7 and K8 (conflict_scan.cu) answer
+// "does this key meet a staged entry of a class that conflicts with mine?"
+// by one probe of a KeyMaskTable instead of a walk over every staged entry:
+// the table maps a 64-bit mixed key to the OR of 1 << class over its
+// entries, so a conflict is (matrix row & mask) != 0 -- bit for bit the OR,
+// over same-key entries, of the matrix_bit test of keyhash.cuh.
 #pragma once
 
 #include <cstdint>
@@ -122,14 +123,37 @@ struct Owned {
 constexpr int32_t kHit = 1 << 29;  // the item meets a conflicting entry
 constexpr int32_t kPos = kHit - 1;
 
+// The stable gather of a block's own items, in batch order, into a list of
+// up to kList: own(b, item) says whether the block keeps item b (and fills
+// it), and store(pos, item) writes a kept item at its list position.  Every
+// thread reads the batch b < B, one item per thread and step.  take(n)
+// runs on the list's n items whenever another step could overflow it, and
+// once at the end, so a block with more items than kList takes them in
+// chunks, in batch order.  Every thread of the block calls it (own and
+// store hold no barrier; take may).
+template <int kList, typename Item, typename Own, typename Store,
+          typename Take>
+__device__ __forceinline__ void gather_owned(int B, int* warp_counts, Own own,
+                                             Store store, Take take) {
+  int n = 0;  // items in the list (the same in every thread)
+  for (int base = 0; base < B; base += blockDim.x) {
+    if (n + static_cast<int>(blockDim.x) > kList) {
+      take(n);
+      n = 0;
+    }
+    const int b = base + threadIdx.x;
+    Item it{};
+    const bool mine = b < B && own(b, it);
+    int added;
+    const int pos = n + block_rank(mine, warp_counts, added);
+    if (mine) store(pos, it);
+    n += added;
+  }
+  take(n);
+}
+
 // A block's shared memory: the staged table's kSlots slots and a list of
-// up to kList of its own items.  gather() reads the batch b < B, one item
-// per thread and step; own(b, item) says whether the block keeps item b
-// (and fills it), and the kept items join the list in batch order.
-// take(n) runs on the list's n items whenever another step could overflow
-// it, and once at the end, so a block with more items than kList takes them
-// in chunks, in batch order.  Every thread of the block calls gather (own
-// holds no barrier; take may).
+// up to kList of its own items (Owned), filled by gather_owned.
 template <int kSlots, int kList, int kWarps>
 struct OwnedList {
   unsigned long long keys[kSlots];
@@ -146,26 +170,15 @@ struct OwnedList {
 
   template <typename Own, typename Take>
   __device__ __forceinline__ void gather(int B, Own own, Take take) {
-    int n = 0;  // items in the list (the same in every thread)
-    for (int base = 0; base < B; base += blockDim.x) {
-      if (n + static_cast<int>(blockDim.x) > kList) {
-        take(n);
-        n = 0;
-      }
-      const int b = base + threadIdx.x;
-      Owned it{0u, 0u, 0, 0};
-      const bool mine = b < B && own(b, it);
-      int added;
-      const int pos = n + block_rank(mine, warp_counts, added);
-      if (mine) {
-        q_hi[pos] = it.hi;
-        q_lo[pos] = it.lo;
-        q_cls[pos] = it.cls;
-        q_idx[pos] = it.idx;
-      }
-      n += added;
-    }
-    take(n);
+    gather_owned<kList, Owned>(
+        B, warp_counts, own,
+        [&](int pos, const Owned& it) {
+          q_hi[pos] = it.hi;
+          q_lo[pos] = it.lo;
+          q_cls[pos] = it.cls;
+          q_idx[pos] = it.idx;
+        },
+        take);
   }
 };
 

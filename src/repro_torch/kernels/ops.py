@@ -76,8 +76,7 @@ _CSRC = "src/repro_torch/kernels/csrc/"
 GANG_RECORD = CudaKernel(
     "gang_record", _CSRC + "gang_record.cu",
     "src/repro/kernels/witness_record.py:681",
-    {"gang_record_prep": [I, P, P, P, P, I, I, P, P, P, P],
-     "gang_record_runs": [I, I] + [P] * 8 + [I] * 4 + [P] * 9})
+    {"gang_record_launch": [I, I] + [P] * 11 + [I] * 4 + [P] * 9})
 GANG_FASTPATH = CudaKernel(
     "gang_fastpath", _CSRC + "gang_fastpath.cu",
     "src/repro/kernels/ops.py:787",
@@ -142,6 +141,10 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 _MATRIX: Dict[torch.device, torch.Tensor] = {}
 
+# K3, K6 and K7 keep an item's batch position below bit 29 of a word whose
+# upper bits are flags (smem_join.cuh); K2 holds its copies to the same.
+_MAX_BATCH = 1 << 29
+
 
 def _matrix(device: torch.device) -> torch.Tensor:
     m = _MATRIX.get(device)
@@ -173,20 +176,30 @@ def _check_cuda(device: torch.device, *tensors) -> None:
                 f"(contiguous={t.is_contiguous()})")
 
 
-def _record_runs(table: GangTable, n_sets: int, rows, rep: int, qh, ql,
-                 r_hi, r_lo, cls, counters) -> torch.Tensor:
-    """K2's record stage over ``rows`` (one per query copy; copy e reads
-    op e // rep).  Returns reasons per copy."""
-    dev = rows.device
+def _record_launch(table: GangTable, n_sets: int, rows, rep: int, qh, ql,
+                   r_hi, r_lo, cls, counters, *, k_hi=None, k_lo=None,
+                   lanes=None, valid=None) -> torch.Tensor:
+    """K2's one launch.  Given ``rows`` (K3's record stage), copy e of op
+    e // rep goes to gang row ``rows[e]`` (a row outside [0, L * S) is
+    padding, reason 0), as ``ref.record_copies_plain`` sets out; with
+    ``rows`` None, op b hashes ``k_hi``/``k_lo`` into ``qh``/``ql`` and
+    goes to its row at ``lanes[b]`` unless ``valid[b]`` != 1, one copy an
+    op.  Returns reasons per copy."""
+    dev = table.occ.device
+    N = (k_hi if rows is None else rows).shape[0]
+    if N >= _MAX_BATCH:
+        raise ValueError(f"gang_record takes fewer than {_MAX_BATCH} "
+                         f"copies, got {N}")
     R, W = table.occ.shape
-    rows_sorted, perm = torch.sort(rows, stable=True)
-    N = rows.shape[0]
-    reasons = torch.zeros(N, dtype=torch.int32, device=dev)
+    reasons = torch.empty(N, dtype=torch.int32, device=dev)
+    if N == 0:
+        return reasons
     m = _matrix(dev)
     GANG_RECORD.call(
-        "gang_record_runs", N, rep, _ptr(rows_sorted), _ptr(perm), _ptr(qh),
-        _ptr(ql), _ptr(r_hi), _ptr(r_lo), _ptr(cls), _ptr(m), m.numel(), R,
-        n_sets, W, *(_ptr(p) for p in table), _ptr(reasons), _ptr(counters),
+        "gang_record_launch", N, rep, _ptr(k_hi), _ptr(k_lo), _ptr(lanes),
+        _ptr(valid), _ptr(rows), _ptr(qh), _ptr(ql), _ptr(r_hi), _ptr(r_lo),
+        _ptr(cls), _ptr(m), m.numel(), R, n_sets, W,
+        *(_ptr(p) for p in table), _ptr(reasons), _ptr(counters),
         _stream(dev))
     GANG_RECORD.launches += 1
     return reasons
@@ -194,19 +207,16 @@ def _record_runs(table: GangTable, n_sets: int, rows, rep: int, qh, ql,
 
 def gang_record_cuda(table: GangTable, n_sets: int, k_hi, k_lo, k_cls,
                      k_valid, lanes, r_hi, r_lo, counters=None):
-    """K2 on the card; see ``ref.gang_record_plain`` for the contract."""
+    """K2 on the card, one launch (no prep, no sort); see
+    ``ref.gang_record_plain`` for the contract."""
     dev = k_hi.device
     _check_cuda(dev, *table, k_hi, k_lo, k_cls, k_valid, lanes, r_hi, r_lo,
                 counters)
-    B = k_hi.shape[0]
     qh = torch.empty_like(k_hi)
     ql = torch.empty_like(k_hi)
-    rows = torch.empty_like(k_hi)
-    GANG_RECORD.call("gang_record_prep", B, _ptr(k_hi), _ptr(k_lo),
-                     _ptr(lanes), _ptr(k_valid), n_sets, table.occ.shape[0],
-                     _ptr(qh), _ptr(ql), _ptr(rows), _stream(dev))
-    rsn = _record_runs(table, n_sets, rows, 1, qh, ql, r_hi, r_lo, k_cls,
-                       counters)
+    rsn = _record_launch(table, n_sets, None, 1, qh, ql, r_hi, r_lo, k_cls,
+                         counters, k_hi=k_hi, k_lo=k_lo, lanes=lanes,
+                         valid=k_valid)
     return rsn, qh, ql
 
 
@@ -270,18 +280,13 @@ def gang_gc_cuda(table: GangTable, n_sets: int, g_hi, g_lo, g_rh, g_rl,
     return cleared
 
 
-# K3, K6 and K7 keep an item's batch position below bit 29 of a word whose
-# upper bits are flags (smem_join.cuh).
-_MAX_BATCH = 1 << 29
-
-
 def gang_fastpath_cuda(table: GangTable, n_sets: int, f: int,
                        k_hi, k_lo, k_cls, k_valid, r_hi, r_lo, exec_pred,
                        slot_map, lane_map, ring_hi, ring_lo, ring_cls,
                        tail, count, counters=None):
-    """K3 (one launch, then K2's record stage) on the card; see
-    ``ref.gang_fastpath_plain`` for the contract.  The slot map's shards
-    must lie in [0, NS) and count + appends fit CAP, as
+    """K3 on the card: its own launch, then K2's (the record stage), and
+    no other; see ``ref.gang_fastpath_plain`` for the contract.  The slot
+    map's shards must lie in [0, NS) and count + appends fit CAP, as
     ``gang_fastpath_batch`` checks on the host."""
     dev = k_hi.device
     _check_cuda(dev, *table, k_hi, k_lo, k_cls, k_valid, r_hi, r_lo,
@@ -309,8 +314,8 @@ def gang_fastpath_cuda(table: GangTable, n_sets: int, f: int,
         _ptr(qh), _ptr(ql), _ptr(shard), _ptr(rows_e), _ptr(conflicts),
         _ptr(new_count), _stream(dev))
     GANG_FASTPATH.launches += 1
-    rsn = _record_runs(table, n_sets, rows_e, f, qh, ql, r_hi, r_lo, k_cls,
-                       counters)
+    rsn = _record_launch(table, n_sets, rows_e, f, qh, ql, r_hi, r_lo, k_cls,
+                         counters)
     return rsn, conflicts, shard, qh, ql, new_count
 
 
@@ -376,10 +381,13 @@ def fastpath_record_scan_cuda(table: WitnessTable, k_hi, k_lo, k_cls,
 
 
 def conflict_scan_cuda(w_hi, w_lo, w_valid, q_hi, q_lo, q_cls):
-    """K8 on the card; see ``ref.conflict_scan_plain`` for the contract."""
+    """K8 on the card, one launch; see ``ref.conflict_scan_plain`` for the
+    contract.  No queries, no launch."""
     dev = q_hi.device
     _check_cuda(dev, w_hi, w_lo, w_valid, q_hi, q_lo, q_cls)
     conflicts = torch.empty_like(q_hi)
+    if q_hi.shape[0] == 0:
+        return conflicts
     m = _matrix(dev)
     CONFLICT_SCAN.call("conflict_scan_launch", q_hi.shape[0], _ptr(q_hi),
                        _ptr(q_lo), _ptr(q_cls), _ptr(m), m.numel(),

@@ -394,6 +394,112 @@ def fastpath_corners(rng: np.random.Generator, B: int, NS: int, CAP: int,
     return out
 
 
+GANG_RECORD_CORNERS = ("one_row_chunks", "dup_conflict_orders", "full_row",
+                       "1_way", "64_ways", "few_rows", "padding_only",
+                       "no_counters", "rep_f")
+
+
+def gang_record_corners(rng: np.random.Generator, B: int, f: int):
+    """``gang_record`` cases at the corners of K2's row-owning design, in
+    the order of ``GANG_RECORD_CORNERS``: each a dict of ``planes``,
+    ``n_sets``, the batch ``rec`` (as :func:`record_batch` gives it) and
+    ``counters`` (whether the [L, 5] plane is fed).  On a 4 x 64 x 4 gang
+    unless named: 3 x B queries all in one row (at B = 1024 the owning
+    block takes them in chunks of its list), 8 keys of one set under 24
+    rpcs; DUP and CONFLICT of one key in both batch orders (insert, retry,
+    foreign rpc; insert, foreign rpc, retry), and rows that hold one key
+    under two INCR rpcs in either way order, met by retries of either, a
+    SET and a third INCR; a row driven FULL by 2W + 1 distinct keys; W = 1
+    and W = 64 (ways at a stride of 32); 2 lanes x 16 sets, fewer rows than
+    blocks; no queries (the op pads to a bucket of padding only); a batch
+    without counters; and the fused batch's stage, each of B ops at f
+    lanes (``lanes`` is [B, f], f <= 4, and ``valid`` marks a tenth of
+    them padding).  One rpc is one op, so its class is a function of
+    it."""
+    n_rpcs = 24
+    out = []
+
+    def case(planes, S, rec, counters=True):
+        out.append(dict(planes=planes, n_sets=S, rec=rec, counters=counters))
+
+    def gang(L, S, W, fill=0.5):
+        pool = key_pool(rng, 4 * S * W, S)
+        return pool, gang_planes(rng, pool, L, S, W, n_rpcs, fill=fill)
+
+    def batch(key_hi, key_lo, lanes, rpc_lo):
+        rpc_lo = np.asarray(rpc_lo, np.uint32)
+        return dict(key_hi=np.asarray(key_hi, np.uint32),
+                    key_lo=np.asarray(key_lo, np.uint32),
+                    lanes=np.asarray(lanes, np.int32),
+                    rpc_hi=np.full(rpc_lo.shape, 7, np.uint32),
+                    rpc_lo=rpc_lo, key_cls=cls_of_rpc(rpc_lo))
+
+    L, S, W = 4, 64, 4
+    pool, planes = gang(L, S, W)
+    keys = max(pool.by_set.values(), key=len)[:8]
+    k = keys[rng.integers(0, keys.size, 3 * B)]
+    case(planes, S, batch(pool.hi[k], pool.lo[k], np.ones(3 * B),
+                          rng.integers(0, n_rpcs, 3 * B)))
+
+    # Rows of lane 2 that hold a key twice under INCR rpcs, in either way
+    # order (rpc 4a + 1 is an INCR, 4a a SET); fresh keys on lane 3.
+    pool, planes = gang(L, S, W, fill=0.0)
+    incr = 4 * n_rpcs + np.array([1, 5, 9], np.uint32)
+    sets_ = 4 * n_rpcs + np.array([0, 4], np.uint32)
+    queries = []                                  # (pool key, lane, rpc)
+    for order, s in enumerate([s for s, v in pool.by_set.items()
+                               if v.size >= 3][:2]):
+        held, fresh = pool.by_set[s][0], pool.by_set[s][1 + order]
+        row = 2 * S + s
+        for way, rpc in enumerate(incr[:2] if order == 0 else incr[1::-1]):
+            for plane, v in zip(planes, (pool.q_hi[held], pool.q_lo[held],
+                                         1 + CLASSES[1], 7, rpc)):
+                plane[row, way] = v
+        queries += [(held, 2, rpc) for rpc in                # DUP DUP CONF INS
+                    (incr[0], incr[1], sets_[0], incr[2])]
+        queries += [(fresh, 3, rpc) for rpc in  # INS DUP CONF, INS CONF DUP
+                    (sets_[[0, 0, 1]] if order == 0 else sets_[[0, 1, 0]])]
+    k, q_lane, q_rpc = (np.array(v) for v in zip(*queries))
+    case(planes, S, batch(pool.hi[k], pool.lo[k], q_lane, q_rpc))
+
+    pool, planes = gang(L, S, W)
+    case(planes, S, record_batch(rng, pool, B, L, S, n_rpcs, flood=2 * W + 1))
+    for L_, S_, W_ in ((4, 64, 1), (2, 16, 64), (2, 16, 4)):
+        pool, planes = gang(L_, S_, W_)
+        case(planes, S_, record_batch(rng, pool, B, L_, S_, n_rpcs,
+                                      flood=2 * W_ + 1))
+    pool, planes = gang(L, S, W)
+    case(planes, S, batch([], [], [], []))
+    case(planes, S, record_batch(rng, pool, B, L, S, n_rpcs, flood=2 * W + 1),
+         counters=False)
+    rec = record_batch(rng, pool, B, L, S, n_rpcs, flood=2 * W + 1)
+    first = rng.integers(0, L - f + 1, B)
+    rec["lanes"] = (first[:, None] + np.arange(f)[None, :]).astype(np.int32)
+    rec["valid"] = (rng.random(B) >= 0.1).astype(np.int32)
+    case(planes, S, rec)
+    return out
+
+
+def copies_operands(table: ref.GangTable, n_sets: int, key_hi, key_lo, lanes,
+                    rpc_hi, rpc_lo, key_cls, valid):
+    """A :func:`gang_record_corners` ``rep_f`` batch -> the device operands
+    of K2 as K3's record stage (``ops._record_launch`` and
+    ``ref.record_copies_plain`` after (table, n_sets)): rows [B * f] (an
+    invalid op's copies at row L * S, padding, as K3 gives them), rep, and
+    the ops' mixed lanes, rpc and class."""
+    B, f = np.asarray(lanes).shape
+    qh, ql = ref.np_keyhash2x32(np.asarray(key_hi, np.uint32),
+                                np.asarray(key_lo, np.uint32))
+    rows = (np.asarray(lanes, np.int64) * n_sets
+            + (ql & np.uint32(n_sets - 1)).astype(np.int64)[:, None])
+    rows[np.asarray(valid) != 1] = table.occ.shape[0]
+    rows, qh, ql, rh, rl, cls = ops._to_device(
+        table.occ.device, rows.reshape(-1).astype(np.int32), qh, ql,
+        np.asarray(rpc_hi, np.uint32), np.asarray(rpc_lo, np.uint32),
+        np.asarray(key_cls, np.int32))
+    return rows, f, qh, ql, rh, rl, cls
+
+
 # ---------------------------------------------------------------------------
 # Kernel against plain version, on the same device tensors
 # ---------------------------------------------------------------------------
@@ -460,15 +566,47 @@ def launches_per_call(fn, iters: int = 20) -> Dict[str, float]:
     return counts
 
 
+def _record_corner(c: dict, device: torch.device, trim: bool):
+    """One :func:`gang_record_corners` case through K2 and its plain
+    version on identical copies of its gang (a ``rep_f`` case through K3's
+    record stage; any other as the op pads it, or trimmed to its real
+    batch); returns (max_abs_err, outputs, coverage)."""
+    base = ref.gang_from_numpy(c["planes"], device)
+    S = c["n_sets"]
+    L = base.occ.shape[0] // S
+    ta, tb = base.clone(), base.clone()
+    ca, cb = ((torch.zeros((L, ref.N_REASON_CODES), dtype=torch.int32,
+                           device=device) for _ in range(2))
+              if c["counters"] else (None, None))
+    if "valid" in c["rec"]:
+        args = copies_operands(base, S, **c["rec"])
+        ra = (ops._record_launch(ta, S, *args, ca),)
+        rb = (ref.record_copies_plain(tb, S, *args, cb),)
+        valid = args[0] < base.occ.shape[0]
+    else:
+        args = ops.record_operands(base, S, **c["rec"])
+        if trim:
+            args = [a[:len(c["rec"]["key_hi"])] for a in args]
+        ra = ops.gang_record_cuda(ta, S, *args, ca)
+        rb = ref.gang_record_plain(tb, S, *args, cb)
+        valid = args[3] == 1
+    pairs = list(zip(ra, rb)) + list(zip(ta, tb))
+    if ca is not None:
+        pairs.append((ca, cb))
+    return (*_diff(pairs), _coverage(ra[0][valid]))
+
+
 def check_kernels(planes, n_sets: int, rec: dict, grp: dict, gc: dict,
                   fp: dict, f: int, device="cuda", fp_corners=(),
-                  gc_corners=()) -> List[Parity]:
+                  gc_corners=(), rec_corners=()) -> List[Parity]:
     """Run each CUDA kernel and its plain version on identical copies of
     the same device tensors; compare every output, every table plane, the
     rings and the counter plane.  ``fp_corners`` (:func:`fastpath_corners`)
     are more K3 cases and ``gc_corners`` (:func:`gc_corners`) more K4
-    cases, each run as the op pads it and trimmed to its real batch.
-    Returns one :class:`Parity` per kernel."""
+    cases, each run as the op pads it and trimmed to its real batch;
+    ``rec_corners`` (:func:`gang_record_corners`) more K2 cases, the same
+    (a ``rep_f`` case once, as K3's stage).  Returns one :class:`Parity`
+    per kernel."""
     device = torch.device(device)
     base = ref.gang_from_numpy(planes, device)
     L = base.occ.shape[0] // n_sets
@@ -483,9 +621,12 @@ def check_kernels(planes, n_sets: int, rec: dict, grp: dict, gc: dict,
     args = ops.record_operands(base, n_sets, **rec)
     ra = ops.gang_record_cuda(ta, n_sets, *args, ca)
     rb = ref.gang_record_plain(tb, n_sets, *args, cb)
-    out.append(Parity("gang_record", *_diff(
-        list(zip(ra, rb)) + list(zip(ta, tb)) + [(ca, cb)]),
-        _coverage(ra[0][args[3] == 1])))
+    parts = [(*_diff(list(zip(ra, rb)) + list(zip(ta, tb)) + [(ca, cb)]),
+              _coverage(ra[0][args[3] == 1]))]
+    for c in rec_corners:
+        for trim in (False,) if "valid" in c["rec"] else (False, True):
+            parts.append(_record_corner(c, device, trim))
+    out.append(_merge("gang_record", parts))
 
     (ta, ca), (tb, cb) = twins()
     args = ops.groups_operands(base, n_sets, **grp)
@@ -701,6 +842,61 @@ def scan_batch(rng: np.random.Generator, pool: KeyPool, B: int,
     return dict(w_hi=w_hi, w_lo=w_lo, w_valid=w_valid, q_hi=pool.q_hi[k],
                 q_lo=pool.q_lo[k],
                 q_cls=CLASSES[rng.integers(0, len(CLASSES), B)])
+
+
+SCAN_CORNERS = ("empty_window", "repeated_keys", "all_ones_key",
+                "three_tiles", "legacy_valid", "class_32_up", "batch_1000")
+
+ALL_ONES = np.uint32(0xFFFFFFFF)
+
+
+def scan_corners(rng: np.random.Generator, B: int, U: int):
+    """``conflict_scan`` cases at the corners of K8's table join, in the
+    order of ``SCAN_CORNERS``, B queries against U entries unless named:
+    no window; 32 keys held by up to U / 32 entries each, half of them
+    only under INCR (which commutes with itself), half under mixed
+    classes, probed by INCR and SET queries; a window entry and queries
+    equal to the all-ones key (the table's empty marker) beside keys that
+    are all ones in one lane; 3 x U entries (three shared-memory tables at
+    U = 1024); a legacy 0/1 window; window classes of 16 to 40 and query
+    classes of 16 to 40 (outside the matrix) beside ordinary ones; and
+    B = 1000, not a multiple of the block."""
+    pool = key_pool(rng, max(4 * U, 256), 64)
+    out = [scan_batch(rng, pool, B, 0)]
+
+    hot = rng.integers(0, len(pool.hi), 32)
+    k = rng.integers(0, 32, U)
+    w_valid = np.where(k < 16, 1 + CLASSES[1],
+                       1 + CLASSES[rng.integers(0, len(CLASSES), U)])
+    q = rng.integers(0, 32, B)
+    out.append(dict(w_hi=pool.q_hi[hot[k]], w_lo=pool.q_lo[hot[k]],
+                    w_valid=w_valid.astype(np.int32), q_hi=pool.q_hi[hot[q]],
+                    q_lo=pool.q_lo[hot[q]],
+                    q_cls=CLASSES[rng.integers(0, 2, B)]))
+
+    sc = scan_batch(rng, pool, B, U)
+    n = min(8, B)
+    sc["w_hi"][:2] = sc["w_lo"][:2] = ALL_ONES
+    sc["w_valid"][:2] = (1 + CLASSES[1], 1 + CLASSES[0])
+    sc["w_hi"][2], sc["w_lo"][2] = ALL_ONES, np.uint32(0)
+    sc["q_hi"][:n] = sc["q_lo"][:n] = ALL_ONES
+    sc["q_hi"][n - 2:n] = (ALL_ONES, np.uint32(0))
+    sc["q_lo"][n - 2:n] = (np.uint32(0), ALL_ONES)
+    sc["q_cls"][:n] = CLASSES[np.arange(n) % 2]
+    out.append(sc)
+
+    out.append(scan_batch(rng, pool, B, 3 * U))
+    sc = scan_batch(rng, pool, B, U)
+    sc["w_valid"] = (sc["w_valid"] > 0).astype(np.int32)
+    out.append(sc)
+    sc = scan_batch(rng, pool, B, U)
+    odd = rng.random(U) < 0.3
+    sc["w_valid"][odd] = 1 + rng.integers(16, 41, int(odd.sum()))
+    odd = rng.random(B) < 0.3
+    sc["q_cls"][odd] = rng.integers(16, 41, int(odd.sum()))
+    out.append(sc)
+    out.append(scan_batch(rng, pool, 1000, U))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -979,14 +1175,16 @@ def check_txn_kernels(probe_planes, probes, gcs, seqs,
     return out
 
 
-__all__ = ["BRANCHES", "CLASSES", "GC_CORNERS", "GC_EMPTY", "GC_HIT",
-           "GC_MISS", "GC_REPEAT", "GC_STALE", "KeyPool", "N_CODES", "Parity",
-           "SCAN_COMMUTES", "SCAN_HIT", "TABLE_RECORD_CORNERS", "TXN_DUP_KEY",
+__all__ = ["ALL_ONES", "BRANCHES", "CLASSES", "GANG_RECORD_CORNERS",
+           "GC_CORNERS", "GC_EMPTY", "GC_HIT", "GC_MISS", "GC_REPEAT",
+           "GC_STALE", "KeyPool", "N_CODES", "Parity", "SCAN_COMMUTES",
+           "SCAN_CORNERS", "SCAN_HIT", "TABLE_RECORD_CORNERS", "TXN_DUP_KEY",
            "TXN_OWN_PASS", "TXN_PADDED", "TXN_SAME_SET", "check_kernels",
            "check_table_kernels", "check_txn_kernels", "cls_of_rpc",
-           "fastpath_batch", "fastpath_corners", "gang_planes", "gc_batch",
-           "gc_codes", "gc_corners", "gc_entries", "gc_planes", "group_batch",
-           "held", "key_pool", "launches_per_call", "reason_coverage",
-           "record_batch", "scan_batch", "scan_codes", "table_batch",
+           "copies_operands", "fastpath_batch", "fastpath_corners",
+           "gang_planes", "gang_record_corners", "gc_batch", "gc_codes",
+           "gc_corners", "gc_entries", "gc_planes", "group_batch", "held",
+           "key_pool", "launches_per_call", "reason_coverage", "record_batch",
+           "scan_batch", "scan_codes", "scan_corners", "table_batch",
            "table_fastpath_batch", "table_fastpath_corners", "table_planes",
            "table_record_corners", "trace", "txn_chain", "txn_codes", "window"]

@@ -297,6 +297,23 @@ def record_rows_plain(table: GangTable, rows: torch.Tensor,
     return reasons
 
 
+def record_copies_plain(table: GangTable, n_sets: int, rows: torch.Tensor,
+                        rep: int, qh, ql, r_hi, r_lo, cls,
+                        counters=None) -> torch.Tensor:
+    """Plain version of the ``gang_record`` kernel as K3's record stage:
+    copy e of op e // rep at gang row ``rows[e]`` (a row outside
+    [0, L * S) is padding: reason 0, no count), and one count per recorded
+    copy at its lane ``rows[e] // S``.  Returns [N] reasons."""
+    rows = rows.to(torch.int64)
+    valid = (rows >= 0) & (rows < table.occ.shape[0])
+    rep_ = lambda x: torch.repeat_interleave(x, rep)  # noqa: E731
+    rsn = record_rows_plain(table, rows, rep_(qh), rep_(ql), rep_(r_hi),
+                            rep_(r_lo), rep_(cls), valid)
+    if counters is not None:
+        reason_counts_update(counters, rows // n_sets, rsn, valid)
+    return rsn
+
+
 def gang_rows(lanes: torch.Tensor, ql: torch.Tensor, n_sets: int) -> torch.Tensor:
     """Global gang row ``lane * S + (ql & (S-1))`` (S a power of two, so the
     mask reads the low bits of the int32 pattern unchanged)."""
@@ -474,14 +491,11 @@ def gang_fastpath_plain(table: GangTable, n_sets: int, f: int,
     new_count = (count.to(torch.int64)
                  + torch.bincount(shard[app], minlength=NS)).to(torch.int32)
     lanes_e = lane_map[shard].reshape(-1)                          # [B*f]
-    rep = lambda x: torch.repeat_interleave(x, f)
-    ql_e = rep(ql)
-    rows_e = gang_rows(lanes_e, ql_e, n_sets)
-    valid_e = rep(k_valid)
-    rsn = record_rows_plain(table, rows_e, rep(qh), ql_e, rep(r_hi),
-                            rep(r_lo), rep(k_cls), valid_e)
-    if counters is not None:
-        reason_counts_update(counters, lanes_e, rsn, valid_e)
+    rows_e = torch.where(torch.repeat_interleave(valid, f),
+                         gang_rows(lanes_e, torch.repeat_interleave(ql, f),
+                                   n_sets), table.occ.shape[0])
+    rsn = record_copies_plain(table, n_sets, rows_e, f, qh, ql, r_hi, r_lo,
+                              k_cls, counters)
     return rsn, conflicts, shard.to(torch.int32), qh, ql, new_count
 
 

@@ -37,6 +37,7 @@ def case(request):
         fp=parity.fastpath_batch(rng, pool, 100, NS, CAP, F, L, 32, 24),
         corners=parity.fastpath_corners(rng, 1000, NS, 1024, F, L, 32, 24),
         gc_corners=parity.gc_corners(rng, planes, S, 24),
+        rec_corners=parity.gang_record_corners(rng, 1024, F),
     )
 
 
@@ -50,11 +51,16 @@ def test_kernel_matches_plain_version(cuda, case, kernel):
     gang_gc also at its corners, padded and as given: identical entries,
     one row's W ways cleared by W rpcs of one key, entries only in lanes
     that do not age, no aging, no entries, and 4096 entries in one aged
-    lane and over eight lanes."""
+    lane and over eight lanes.  gang_record also at its corners, padded
+    and as given: 3072 queries in one row (taken in chunks), DUP and
+    CONFLICT in both orders, a row driven FULL, 1 and 64 ways, fewer rows
+    than blocks, padding only, no counters, and K3's record stage of 1024
+    ops x 3 lanes."""
     results = parity.check_kernels(case["planes"], S, case["rec"],
                                    case["grp"], case["gc"], case["fp"], F,
                                    device=cuda, fp_corners=case["corners"],
-                                   gc_corners=case["gc_corners"])
+                                   gc_corners=case["gc_corners"],
+                                   rec_corners=case["rec_corners"])
     torch.cuda.synchronize()
     got = {r.name: r for r in results}[kernel]
     assert got.outputs > 0
@@ -71,7 +77,10 @@ def table_case(request):
     entries) and 4x2 (2500), which each block takes in chunks.  K6's
     corners: 4096 queries in one set of 1024x4 (taken in chunks), 256x1,
     128x8, 64x64 (ways at a stride of 32), 16x4 (fewer sets than blocks)
-    and a batch of padding only."""
+    and a batch of padding only.  K8's corners at 4096 x 1024: no window,
+    repeated keys, the all-ones key, 3072 entries (three shared-memory
+    tables), legacy 0/1 validity, classes outside the matrix and B =
+    1000."""
     rng = np.random.default_rng(request.param)
     records, fastpaths = [], []
     for S, W in ((64, 4), (16, 2), (128, 8)):
@@ -84,6 +93,7 @@ def table_case(request):
     records += parity.table_record_corners(rng, 1024)
     scans = [parity.scan_batch(rng, pool, 1000, 777),
              parity.scan_batch(rng, pool, 33, 1)]
+    scans += parity.scan_corners(rng, 4096, 1024)
     keys = dict(hi=pool.hi, lo=pool.lo,
                 slot_map=rng.integers(0, 7, 256).astype(np.int32))
     return keys, records, fastpaths, scans
@@ -101,16 +111,18 @@ def test_table_kernel_matches_plain_version(cuda, table_case, kernel):
 
 
 def test_redesigned_kernels_launch_once_per_call(cuda, case, table_case):
-    """fastpath_record_scan, witness_record and gang_gc each launch only
-    their own kernel (no sort); gang_fastpath launches its own kernel and
-    then what K2's record stage launches alone."""
+    """fastpath_record_scan, witness_record, gang_gc, conflict_scan and
+    gang_record each launch only their own kernel (no sort, no prep);
+    gang_fastpath launches its own kernel and gang_record's, and no
+    other."""
     from repro_torch.kernels import ops, ref
 
-    def only(fn, kernel):
+    def only(fn, *kernels):
         per_call = parity.launches_per_call(fn)
-        assert len(per_call) == 1, per_call
-        (name, n), = per_call.items()
-        assert kernel in name and 0 < n <= 1, per_call
+        assert len(per_call) == len(kernels), per_call
+        for kernel in kernels:
+            (n,) = [n for name, n in per_call.items() if kernel in name]
+            assert 0 < n <= 1, per_call
 
     planes, fp = table_case[2][0]
     table = ref.witness_table_from_numpy(planes, cuda)
@@ -122,25 +134,22 @@ def test_redesigned_kernels_launch_once_per_call(cuda, case, table_case):
     args = ops.table_record_operands(table, **q)
     only(lambda: ops.witness_record_cuda(table, *args),
          "witness_record_kernel")
+    args = ops.scan_operands(cuda, **table_case[3][0])
+    only(lambda: ops.conflict_scan_cuda(*args), "conflict_scan_kernel")
     gang = ref.gang_from_numpy(case["planes"], cuda)
     args = ops.gc_operands(gang, S, **case["gc"])
     only(lambda: ops.gang_gc_cuda(gang, S, *args, True), "gang_gc_kernel")
+    args = ops.record_operands(gang, S, **case["rec"])
+    only(lambda: ops.gang_record_cuda(gang, S, *args), "gang_record_kernel")
 
     gang = ref.gang_from_numpy(case["planes"], cuda)
     fpc = dict(case["fp"])
     rings = ref.ring_from_numpy(fpc.pop("ring_hi"), fpc.pop("ring_lo"),
                                 fpc.pop("ring_cls"), cuda)
     args = ops.fastpath_operands(gang, S, **fpc)
-    out = ops.gang_fastpath_cuda(gang, S, F, *args[:9], *rings, *args[9:])
-    per_call = parity.launches_per_call(lambda: ops.gang_fastpath_cuda(
-        gang, S, F, *args[:9], *rings, *args[9:]))
-    rows = torch.arange(len(out[0]), dtype=torch.int32, device=cuda)
-    record = parity.launches_per_call(lambda: ops._record_runs(
-        gang, S, rows, F, out[3], out[4], args[4], args[5], args[2], None))
-    own = sorted(set(per_call) - set(record))
-    assert len(own) == 1 and "gang_fastpath_kernel" in own[0], per_call
-    assert 0 < per_call[own[0]] <= 1, per_call
-    assert set(record) <= set(per_call), (per_call, record)
+    only(lambda: ops.gang_fastpath_cuda(gang, S, F, *args[:9], *rings,
+                                        *args[9:]),
+         "gang_fastpath_kernel", "gang_record_kernel")
 
 
 def test_single_table_ops_on_the_card_match_the_cpu(cuda):

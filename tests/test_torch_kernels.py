@@ -5,7 +5,9 @@ PyTorch version of its CUDA kernel; these tests feed it the same seeded
 numpy inputs as ``repro.kernels.ref``'s oracles (never ``repro.kernels.ops``,
 whose Pallas bodies need a Pallas with ``pl.load``) and require exact
 integer equality of every reason, mixed lane and table plane.  Shapes: 4
-lanes x 64 sets x 4 ways.
+lanes x 64 sets x 4 ways; K2's corners (``parity.gang_record_corners``)
+add 1 and 64 ways, 2 x 16 sets, one row of 300 queries, DUP and CONFLICT
+in both orders, padding only, and K3's record stage of 100 ops x 3.
 """
 import numpy as np
 import pytest
@@ -26,7 +28,7 @@ from repro_torch.kernels import (
     ring_from_numpy,
     ring_to_numpy,
 )
-from repro_torch.kernels import ops, parity
+from repro_torch.kernels import ops, parity, ref
 from repro_torch.kernels.ops import gc_operands
 from repro_torch.kernels.ref import keyhash2x32
 
@@ -110,6 +112,98 @@ def test_gang_record_matches_ref_in_batch_order(seed):
     _planes_equal(table, want_table)
     np.testing.assert_array_equal(counters.numpy(), _counts(q["lanes"], want))
     assert all(parity.reason_coverage(rsn)[1:] > 0), "every reason reached"
+
+
+# The corners of the row-owning kernel at a batch of REC_CORNER_B (the card
+# runs them at 1024, where the one-row batch of 3 x B is taken in chunks).
+REC_CORNER_B = 100
+
+
+def _record_corner(seed, corner):
+    """One ``parity.gang_record_corners`` case through the plain version on
+    the operands the kernel takes (the op's padded batch, or K3's copies
+    for ``rep_f``), held against ``ref_gang_record`` with one group per
+    recorded copy.  Returns the reasons per copy."""
+    c = parity.gang_record_corners(np.random.default_rng(seed),
+                                   REC_CORNER_B, 3)[corner]
+    planes, n_sets, rec = c["planes"], c["n_sets"], c["rec"]
+    table = gang_from_numpy(planes, device="cpu")
+    n_lanes = table.occ.shape[0] // n_sets
+    counters = (torch.zeros((n_lanes, 5), dtype=torch.int32)
+                if c["counters"] else None)
+    if "valid" in rec:               # K3's stage: every op at f lanes
+        args = parity.copies_operands(table, n_sets, **rec)
+        rsn = ref.record_copies_plain(table, n_sets, *args, counters)
+        f = args[1]
+        lanes = rec["lanes"].reshape(-1)
+        keep = np.repeat(rec["valid"] == 1, f)
+        qh, ql, rh, rl, cls = (np.asarray(a.numpy()).view(np.uint32)
+                               for a in args[2:])
+    else:
+        args = ops.record_operands(table, n_sets, **rec)
+        rsn, qh, ql = ref.gang_record_plain(table, n_sets, *args, counters)
+        k_hi, k_lo, _cls, valid, lanes, _rh, _rl = (
+            a.numpy().view(np.uint32) for a in args)
+        # The mixed lanes of every op, padding included.
+        mh, ml = jax_np_keyhash2x32(k_hi, k_lo)
+        np.testing.assert_array_equal(qh.numpy().view(np.uint32), mh)
+        np.testing.assert_array_equal(ql.numpy().view(np.uint32), ml)
+        f, keep = 1, valid == 1
+        qh, ql, cls, rh, rl = mh, ml, _cls, _rh, _rl
+    groups = [(int(lanes[e]), (int(rh[e // f]), int(rl[e // f])),
+               [(int(qh[e // f]), int(ql[e // f]), int(cls[e // f]))])
+              for e in np.flatnonzero(keep)]
+    want, want_table = ref_gang_record(JaxGangTable(*planes), n_sets, groups)
+    want = np.asarray(want, np.int64)
+    expected = np.zeros(keep.size, np.int64)
+    expected[keep] = want
+    np.testing.assert_array_equal(rsn.numpy(), expected)
+    _planes_equal(table, want_table)
+    if counters is not None:
+        np.testing.assert_array_equal(
+            counters.numpy(), _counts(lanes[keep], want, n_lanes))
+    return rsn.numpy()
+
+
+@pytest.mark.parametrize("corner", range(len(parity.GANG_RECORD_CORNERS)),
+                         ids=list(parity.GANG_RECORD_CORNERS))
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_record_corner_matches_ref(seed, corner):
+    rsn = _record_corner(seed, corner)
+    if parity.GANG_RECORD_CORNERS[corner] == "padding_only":
+        assert not rsn.any()
+    else:
+        assert len(set(rsn[rsn > 0])) > 1
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_record_corners_have_their_shape(seed):
+    names = parity.GANG_RECORD_CORNERS
+    cases = dict(zip(names, parity.gang_record_corners(
+        np.random.default_rng(seed), REC_CORNER_B, 3)))
+    geometry = {n: (c["planes"][2].shape[0] // c["n_sets"], c["n_sets"],
+                    c["planes"][2].shape[1]) for n, c in cases.items()}
+    assert geometry.pop("1_way") == (4, 64, 1)
+    assert geometry.pop("64_ways") == (2, 16, 64)
+    assert geometry.pop("few_rows") == (2, 16, 4)   # 32 rows, < 128 blocks
+    assert set(geometry.values()) == {(4, 64, 4)}
+    one = cases["one_row_chunks"]["rec"]
+    ql = jax_np_keyhash2x32(one["key_hi"], one["key_lo"])[1]
+    assert len(ql) == 3 * REC_CORNER_B and len(set(ql % 64)) == 1
+    assert set(one["lanes"]) == {1}
+    assert len(cases["padding_only"]["rec"]["key_hi"]) == 0
+    assert [c["counters"] for c in cases.values()].count(False) == 1
+    assert not cases["no_counters"]["counters"]
+    rep = cases["rep_f"]["rec"]
+    assert rep["lanes"].shape == (REC_CORNER_B, 3)
+    assert 0 < (rep["valid"] == 0).sum() < REC_CORNER_B
+    # Held INCR twice (either way order): DUP, DUP, CONFLICT (a SET),
+    # INSERT (an INCR stacks); a fresh key: INSERT, DUP, CONFLICT, then
+    # INSERT, CONFLICT, DUP.
+    np.testing.assert_array_equal(
+        _record_corner(seed, names.index("dup_conflict_orders"))[:14],
+        [2, 2, 3, 1, 1, 2, 3, 2, 2, 3, 1, 1, 3, 2])
+    assert 4 in _record_corner(seed, names.index("full_row"))
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ oracles (their Pallas bodies need a Pallas with ``pl.load``).  The same
 seeded numpy inputs go to both sides; equality is exact.  Shapes: 64x4,
 16x2 and 256x1 tables, batches of at most 512, windows of at most 128; K7's
 corners add 1024x4, 128x8, 4x2 and 1x4 tables, empty windows, ones of 1024
-and 1500, and batches of 800.
+and 1500, and batches of 800; K8's corners (``parity.scan_corners``) add an
+empty window, repeated keys, the all-ones key, 384 entries, legacy 0/1
+validity, classes outside the matrix and a batch of 1000.
 """
 import statistics
 
@@ -322,6 +324,59 @@ def test_conflict_scan_legacy_valid_bits_mean_set():
         got, np.asarray(jops.conflict_scan(sc["w_hi"], sc["w_lo"], legacy,
                                            sc["q_hi"], sc["q_lo"],
                                            sc["q_cls"])))
+
+
+# The corners of the table join (K8) at SCAN_CORNER_B queries against
+# SCAN_CORNER_U entries (the card runs them at 4096 x 1024, where the
+# three_tiles window fills three shared-memory tables).
+SCAN_CORNER_B, SCAN_CORNER_U = 300, 128
+SCAN_ARGS = ("w_hi", "w_lo", "w_valid", "q_hi", "q_lo", "q_cls")
+
+
+@pytest.mark.parametrize("corner", range(len(parity.SCAN_CORNERS)),
+                         ids=list(parity.SCAN_CORNERS))
+@pytest.mark.parametrize("seed", SEEDS)
+def test_conflict_scan_corner_matches_jax_op_and_ref(seed, corner):
+    sc = parity.scan_corners(np.random.default_rng(seed), SCAN_CORNER_B,
+                             SCAN_CORNER_U)[corner]
+    args = [sc[k] for k in SCAN_ARGS]
+    got = conflict_scan(*args, device="cpu")
+    np.testing.assert_array_equal(
+        got, np.asarray(ref_conflict_scan(*(jnp.asarray(a) for a in args))))
+    if len(sc["w_hi"]):      # the JAX op takes no empty window
+        np.testing.assert_array_equal(
+            got, np.asarray(jops.conflict_scan(*args)))
+    if parity.SCAN_CORNERS[corner] == "empty_window":
+        assert not got.any()
+    else:
+        assert 0 < got.sum() < len(got)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_conflict_scan_corners_have_their_shape(seed):
+    B, U = SCAN_CORNER_B, SCAN_CORNER_U
+    cases = dict(zip(parity.SCAN_CORNERS, parity.scan_corners(
+        np.random.default_rng(seed), B, U)))
+    shapes = {"empty_window": (B, 0), "three_tiles": (B, 3 * U),
+              "batch_1000": (1000, U)}
+    for name, sc in cases.items():
+        assert (len(sc["q_hi"]), len(sc["w_hi"])) == shapes.get(name, (B, U))
+    # Keys held only under INCR commute with INCR queries; the others meet
+    # a SET somewhere and conflict.
+    rk = cases["repeated_keys"]
+    key = lambda h, l: (h.astype(np.uint64) << np.uint64(32)) | l
+    wk, qk = key(rk["w_hi"], rk["w_lo"]), key(rk["q_hi"], rk["q_lo"])
+    assert np.unique(wk, return_counts=True)[1].max() > 1
+    got = conflict_scan(*(rk[k] for k in SCAN_ARGS), device="cpu")
+    meets = ((qk[:, None] == wk[None]) & (rk["w_valid"][None] > 0)).any(1)
+    assert (meets & (got == 0)).any() and (got == 1).any()
+    ones = cases["all_ones_key"]
+    marker = (ones["w_hi"] == 0xFFFFFFFF) & (ones["w_lo"] == 0xFFFFFFFF)
+    assert marker.sum() == 2 and (ones["w_valid"][marker] > 0).all()
+    assert ((ones["q_hi"] == 0xFFFFFFFF) & (ones["q_lo"] == 0xFFFFFFFF)).any()
+    assert set(np.unique(cases["legacy_valid"]["w_valid"])) == {0, 1}
+    odd = cases["class_32_up"]
+    assert (odd["w_valid"] > 33).any() and (odd["q_cls"] >= 16).any()
 
 
 # ---------------------------------------------------------------------------
