@@ -30,7 +30,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    twice under commuting rpcs in either way order, a row driven FULL, 1
    and 64 ways, 2 lanes x 16 sets (fewer rows than blocks), padding only,
    no counters, and K3's record stage of 1024 ops x 3 lanes with a tenth
-   padding.
+   padding.  gang_record_groups (K5) also meets the corners of its design,
+   as the op pads them and as given: one group of one key, a valid group
+   with no valid key, padding groups only, a group of more same-row keys
+   than its row has free ways (FULL), keys repeated in a group as DUPs
+   under two classes (the later class wins, seen in the coverage),
+   dup-all retries, groups of 32 and 64 keys (more than one warp) and
+   1024 groups over one lane (a long chain, staged in tiles).
 2. The slice end to end: ``ShardedCluster(n_shards=64, f=3,
    geometry=WitnessGeometry(1024, 4), sync_batch=50,
    witness_backend="device")`` on the card, driven by the update half of
@@ -65,12 +71,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    padding), kernel and plain chains in lockstep; witness_gc (K10) at
    1024 x 4 and 4096 x 1 with G in {0, 50, 64, 1024}; witness_record_seq
    (K11) at 1024 x 4 with B in {64, 512, 4096}, on an empty table and on
-   one K6 filled with mixed classes.  K7 also meets the corners of its
-   set-owning design at B = 1000, as padded and as given: no window (U =
-   0), 777 entries with repeated keys of other classes at 256 x 1 and
-   128 x 8, and 3072 entries (three shared-memory tables) at 16 x 2; and
-   B = 4000 at 1 x 4 against 1024 entries and at 4 x 2 against 3072, where
-   each block takes its queries in chunks of its list of 1024.  K6 runs
+   one K6 filled with mixed classes, and with B = 4096 at 4096 x 4
+   (196,608 B, staged in shared memory near the limit), 64 x 64 (staged,
+   ways in two chunks) and 4096 x 8 (393,216 B, the global-memory path),
+   each on an empty table and on one K6 half filled.  K7 also meets the
+   corners of its set-owning design at B = 1000, as padded and as
+   given: no window (U = 0), 777 entries with repeated keys of other
+   classes at 256 x 1 and 128 x 8, and 3072 entries (three
+   shared-memory tables) at 16 x 2; and B = 4000 at 1 x 4 against 1024
+   entries and at 4 x 2 against 3072, where each block takes its queries
+   in chunks of its list of 1024.  K6 runs
    every case as padded and as given, and meets the corners of its
    set-owning design: 4096 queries in one set of 1024 x 4 (taken in
    chunks), 256 x 1, 128 x 8, 64 x 64 (ways at a stride of 32), 16 x 4
@@ -119,13 +129,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    6's, and beside K11 the least chain of as many serial steps
    (``csrc/chain_probe.cu``, a probe and not a port: one thread, a
    dependent load and a store a step, in global and in shared memory).
+   K11 is timed staged at 1024 x 4 (its row) and on its global path at
+   4096 x 8, K5 at G = K = 1 (its row) and at G = 64, K = 4, and gang_gc
+   as the op calls it (its lane checks on the host arrays, no copy back).
    For the kernels redesigned as one launch, the kernels each call
    launches under the profiler (fastpath_record_scan, witness_record,
-   gang_gc, conflict_scan, and gang_record both as K3's record stage and
-   as the op: their own kernel only; gang_fastpath: its own kernel and
-   gang_record's, and no other) and gang_fastpath's own launch's device
-   time apart from that stage.  Device times count each kernel per
-   launch the trace caught.
+   gang_gc, conflict_scan, gang_record_groups at both shapes,
+   witness_record_seq on both paths, and gang_record both as K3's record
+   stage and as the op: their own kernel only; gang_fastpath: its own
+   kernel and gang_record's, and no other) and gang_fastpath's own
+   launch's device time apart from that stage.  Device times count each
+   kernel per launch the trace caught.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``;
 the line before them names the card and its power limit.  Details also go
@@ -161,6 +175,11 @@ ROUTE_KEYS = 200_000
 TXN_PROBES, TXN_FILL = 2000, 2.0
 GC_GEOMETRIES, GC_SIZES = ((1024, 4), (4096, 1)), (0, 50, 64, 1024)
 SEQ_BATCHES = (64, 512, 4096)
+# K11's tables beyond 1024 x 4, at B = TABLE_BATCH: staged in shared memory
+# near the limit (196,608 B), staged with ways in two chunks, and on the
+# global-memory path (393,216 B); and the shape its global path is timed at.
+SEQ_TABLES = ((4096, 4), (64, 64), (4096, 8))
+SEQ_GLOBAL = (4096, 8)
 CRASH_TXNS, STREAM_TXNS, STREAM_ITEMS = 64, 1000, 100_000
 
 
@@ -201,10 +220,12 @@ def phase_parity(np, parity, card, device, sync):
     corners = parity.fastpath_corners(rng, 1000, NS, CAP, F, L, 256, 256)
     gc_corners = parity.gc_corners(rng, planes, N_SETS, 256)
     rec_corners = parity.gang_record_corners(rng, BATCH, F)
+    grp_corners = parity.gang_groups_corners(rng)
     results = parity.check_kernels(planes, N_SETS, rec, grp, gc, fp, F,
                                    device=device, fp_corners=corners,
                                    gc_corners=gc_corners,
-                                   rec_corners=rec_corners)
+                                   rec_corners=rec_corners,
+                                   grp_corners=grp_corners)
     sync()
     say(card, "parity gang_fastpath corners (B = 1000, as padded and as "
               "given): every op in shard 63; 32 shards with no op and the "
@@ -226,6 +247,12 @@ def phase_parity(np, parity, card, device, sync):
                           f"{'' if c['counters'] else ', no counters'})"
                           for name, c in zip(parity.GANG_RECORD_CORNERS,
                                              rec_corners)))
+    say(card, "parity gang_record_groups corners (as padded and as given; "
+              "4 x 64 x 4 gangs): "
+              + ", ".join(f"{name} (G = {c['grp']['key_hi'].shape[0]}, "
+                          f"K = {c['grp']['key_hi'].shape[1]})"
+                          for name, c in zip(parity.GANG_GROUPS_CORNERS,
+                                             grp_corners)))
     for r in results:
         say(card, f"parity {r.name}: {r.outputs} integers, "
                   f"max_abs_err {r.max_abs_err}, outcomes by value "
@@ -327,12 +354,14 @@ def phase_txn_parity(np, parity, card, device, sync):
     (a key pool of twice the slots, own set on a tenth of the held keys),
     gc batches of GC_SIZES at 1024 x 4 and 4096 x 1, and the sequential
     record at 1024 x 4 over SEQ_BATCHES on an empty table and on one that
-    K6 filled with mixed classes."""
+    K6 filled with mixed classes, and at SEQ_TABLES with TABLE_BATCH
+    queries on an empty table and on one that K6 half filled."""
     from repro_torch.kernels import (
         WitnessTable,
         witness_record,
         witness_table_to_numpy,
     )
+    from repro_torch.kernels import ops as kops
 
     rng = np.random.default_rng(SEED + 7)
     S, W = TABLE_SETS, TABLE_WAYS
@@ -352,12 +381,25 @@ def phase_txn_parity(np, parity, card, device, sync):
         for base in (_empty_planes(np, S, W), filled):
             q = parity.table_batch(rng, pool, B, W)
             seqs.append((base, dict(q_hi=q["q_hi"], q_lo=q["q_lo"])))
+    paths = []
+    for ts, tw in SEQ_TABLES:
+        tpool = parity.key_pool(rng, 2 * ts * tw, ts)
+        half = WitnessTable.empty(ts, tw, device=device)
+        witness_record(half, **parity.table_batch(rng, tpool, ts * tw // 2,
+                                                  tw))
+        paths.append(f"{ts} x {tw} "
+                     + ("staged" if kops.witness_record_seq_staged(half)
+                        else "global")
+                     + f", K6-filled {(half.occ > 0).float().mean():.3f}")
+        for base in (_empty_planes(np, ts, tw), witness_table_to_numpy(half)):
+            q = parity.table_batch(rng, tpool, TABLE_BATCH, tw)
+            seqs.append((base, dict(q_hi=q["q_hi"], q_lo=q["q_lo"])))
     results = parity.check_txn_kernels(planes, probes, gcs, seqs,
                                        device=device)
     sync()
     say(card, f"parity: K9 chain from a table {(planes[2] > 0).mean():.3f} "
               f"full, K6-filled table {(filled[2] > 0).mean():.3f} full "
-              f"for K11")
+              f"for K11; K11 at B = {TABLE_BATCH} on " + "; ".join(paths))
     for r in results:
         say(card, f"parity {r.name}: {r.outputs} integers, "
                   f"max_abs_err {r.max_abs_err}, outcomes by code "
@@ -1334,8 +1376,16 @@ def phase_times(np, torch, dev_cluster, card, device):
     aged = [w.lane for w in dev_cluster.shards[1].witnesses]
     gc["aged_lanes"] = np.zeros(L, np.int32)
     gc["aged_lanes"][aged] = 1
-    gargs = kops.gc_operands(table0, N_SETS, **gc)
-    wrote = once(lambda: kops.gang_gc_cuda(table, N_SETS, *gargs, True))
+    # As gang_gc calls it: the lane checks read the host arrays the
+    # operands came from, with no copy back.
+    ghost = kops.gc_host_operands(table0, N_SETS, **gc)
+    gargs = kops._to_device(dev, *ghost)
+
+    def gc_run():
+        return kops.gang_gc_cuda(table, N_SETS, *gargs, True,
+                                 g_lane_host=ghost[4], aged_host=ghost[6])
+
+    wrote = once(gc_run)
     G = len(gc["g_hi"])
     probed = np.zeros((L * N_SETS, W), bool)
     probed[gc["g_lane"].astype(np.int64) * N_SETS
@@ -1349,32 +1399,40 @@ def phase_times(np, torch, dev_cluster, card, device):
               + int((probed | in_aged).sum()) * 4  # occ, read once
               + int((in_aged & (occ_after > 0)).sum()) * 4  # ages that grow
               + wrote)
-    # Its device time is the kernel's: the wrapper's check of the aged
-    # lanes copies them to the host first (in card ms, not here).
     out["gang_gc"] = timed(
-        lambda: kops.gang_gc_cuda(table, N_SETS, *gargs, True),
-        lambda: ref.gang_gc_plain(table, N_SETS, *gargs, True), nbytes,
-        G * W * 10 + int(in_aged.sum()) * 3, only="gang_gc_kernel")
+        gc_run, lambda: ref.gang_gc_plain(table, N_SETS, *gargs, True),
+        nbytes, G * W * 10 + int(in_aged.sum()) * 3, only="gang_gc_kernel")
     restore()
     out["gang_gc"]["launches_per_call"] = _one_launch(
-        card, parity, "gang_gc",
-        lambda: kops.gang_gc_cuda(table, N_SETS, *gargs, True),
-        "gang_gc_kernel")
+        card, parity, "gang_gc", gc_run, "gang_gc_kernel")
 
-    # K5: DeviceWitness.record, one single-key op (G = K = 1): key, class,
-    # lane and rpc in; one row probed; reason and mixed lanes out.
-    grp = parity.group_batch(rng, pool, 1, 1, L, 256)
-    rargs = kops.groups_operands(table0, N_SETS, **grp)
-    row = (grp["lanes"][:1].astype(np.int64) * N_SETS
-           + (ref.np_keyhash2x32(grp["key_hi"][0, :1], grp["key_lo"][0, :1])[1]
-              & np.uint32(N_SETS - 1)))
-    nbytes = (6 * 4 + 4 + _probe_bytes(np, row, W) + 3 * 4
-              + once(lambda: kops.gang_groups_cuda(table, N_SETS, *rargs,
-                                                   counters)))
-    out["gang_record_groups"] = timed(
-        lambda: kops.gang_groups_cuda(table, N_SETS, *rargs, counters),
-        lambda: ref.gang_groups_plain(table, N_SETS, *rargs, counters),
-        nbytes, W * 10)
+    # K5: DeviceWitness.record, one single-key op (G = K = 1, the op pads it
+    # to 4 x 2; its row in the kernels' line), and phase 1's group batch
+    # (G = 64 groups of up to K = 4 keys).  Bytes: each valid key's lanes
+    # and class and each group's lane and rpc in, the probed rows, the
+    # mixed lanes and reasons out, and what the call wrote.
+    for name, (G5, K5) in (("gang_record_groups", (1, 1)),
+                           ("gang_record_groups 64x4", (64, 4))):
+        grp = parity.group_batch(rng, pool, G5, K5, L, 256)
+        rargs = kops.groups_operands(table0, N_SETS, **grp)
+        v = grp["key_valid"] == 1
+        ql5 = ref.np_keyhash2x32(grp["key_hi"], grp["key_lo"])[1]
+        rows = (np.repeat(grp["lanes"][:, None], K5, 1).astype(np.int64)
+                * N_SETS + (ql5 & np.uint32(N_SETS - 1)))[v]
+
+        def run(rargs=rargs):
+            return kops.gang_groups_cuda(table, N_SETS, *rargs, counters)
+
+        nbytes = (int(v.sum()) * (12 + 8) + G5 * (12 + 4)
+                  + _probe_bytes(np, rows, W) + once(run))
+        out[name] = timed(
+            run, lambda rargs=rargs: ref.gang_groups_plain(
+                table, N_SETS, *rargs, counters),
+            nbytes, int(v.sum()) * W * 10)
+        restore()
+        out[name]["launches_per_call"] = _one_launch(
+            card, parity, f"{name} (G = {G5}, K = {K5})", run,
+            "gang_groups_kernel")
     for name, t in out.items():
         dms = ("not measured" if t["device_ms"] is None
                else f"{t['device_ms']:.4f} ms")
@@ -1523,14 +1581,14 @@ def phase_table_times(np, torch, card, device, key_lanes):
     return out
 
 
-def _chain_ms(np, torch, rng, dev, B, n_sets, n_ways):
+def _chain_ms(np, torch, rng, dev, B, n_sets, n_ways, shared=True):
     """K11's chain bound, measured: ``chain_probe.cu`` runs B dependent
     steps of the least work a step of K11 does (a load whose address the
     previous load gave, a store into the same row) by one thread, over a
     random cycle of the rows of an n_sets x n_ways plane, once in global
-    memory as K11 keeps its table and once staged in shared memory.  Each
-    run's words and the word it ended on are checked against the chain
-    walked on the host."""
+    memory and, with ``shared``, once staged in shared memory (the probe
+    stages one plane of up to 48 KB).  Each run's words and the word it
+    ended on are checked against the chain walked on the host."""
     from repro_torch.kernels import build, ops as kops
 
     if n_ways < 2:
@@ -1550,9 +1608,9 @@ def _chain_ms(np, torch, rng, dev, B, n_sets, n_ways):
     words = torch.from_numpy(words0).to(dev)
     end = torch.empty(1, dtype=torch.int32, device=dev)
     out = {}
-    for where, shared in (("global", 0), ("shared", 1)):
+    for where, in_shared in (("global", 0), ("shared", 1))[:1 + shared]:
         def run():
-            rc = fn(B, words.numel(), shared, kops._ptr(words),
+            rc = fn(B, words.numel(), in_shared, kops._ptr(words),
                     kops._ptr(end), kops._stream(dev))
             if rc != 0:
                 raise RuntimeError(f"chain_probe failed with cudaError {rc}")
@@ -1573,7 +1631,7 @@ def phase_txn_times(np, torch, card, device, shapes):
     padding or valid flags, the three planes of each probed set once, each
     table word the call changed, and for the gc the operations of a
     sort-merge join of the held slots' keys against the entries."""
-    from repro_torch.kernels import WitnessTable, ops as kops, ref
+    from repro_torch.kernels import WitnessTable, ops as kops, parity, ref
 
     dev = torch.device(device)
     out = {}
@@ -1630,36 +1688,59 @@ def phase_txn_times(np, torch, card, device, shapes):
                               restore, nbytes,
                               _join_ops(int((occ > 0).sum()), g_hi.size))
 
-    # K11: fig_fastpath's sequential baseline at its largest batch.
+    # K11: fig_fastpath's sequential baseline at its largest batch, staged
+    # in shared memory at the paper's 1024 x 4 (its row in the kernels'
+    # line) and walking global memory at SEQ_GLOBAL; the chain probe beside
+    # each (in shared memory only where a plane fits the probe's 48 KB).
     rng = np.random.default_rng(SEED + 9)
-    table = WitnessTable.empty(TABLE_SETS, TABLE_WAYS, device=dev)
+    for name, (ts, tw), staged in (
+            ("witness_record_seq", (TABLE_SETS, TABLE_WAYS), True),
+            (f"witness_record_seq {SEQ_GLOBAL[0]}x{SEQ_GLOBAL[1]}",
+             SEQ_GLOBAL, False)):
+        table = WitnessTable.empty(ts, tw, device=dev)
+        check(kops.witness_record_seq_staged(table) == staged,
+              f"K11 at {ts} x {tw} does not take the "
+              f"{'staged' if staged else 'global'} path")
 
-    def clear():
-        for p in table:
-            p.zero_()
+        def clear(table=table):
+            for p in table:
+                p.zero_()
 
-    qh, ql = _random_lanes(np, rng, TABLE_BATCH)
-    sargs = kops.seq_operands(table, qh, ql)
-    sets = np.unique(ql & np.uint32(TABLE_SETS - 1)).size
-    nbytes = (TABLE_BATCH * 12 + sets * TABLE_WAYS * 12
-              + changed_bytes(lambda: kops.witness_record_seq_cuda(
-                  table, *sargs), table, clear))
-    out["witness_record_seq"] = timed(
-        lambda: kops.witness_record_seq_cuda(table, *sargs),
-        lambda: ref.witness_record_seq_plain(table, *sargs), clear, nbytes,
-        TABLE_BATCH * TABLE_WAYS * 4)
-    out["witness_record_seq"]["chain"] = TABLE_BATCH
-    out["witness_record_seq"].update(
-        _chain_ms(np, torch, rng, dev, TABLE_BATCH, TABLE_SETS, TABLE_WAYS))
+        qh, ql = _random_lanes(np, rng, TABLE_BATCH)
+        sargs = kops.seq_operands(table, qh, ql)
+        sets = np.unique(ql & np.uint32(ts - 1)).size
+
+        def run(table=table, sargs=sargs):
+            return kops.witness_record_seq_cuda(table, *sargs)
+
+        nbytes = (TABLE_BATCH * 12 + sets * tw * 12
+                  + changed_bytes(run, table, clear))
+        out[name] = t = timed(
+            run, lambda table=table, sargs=sargs:
+            ref.witness_record_seq_plain(table, *sargs), clear, nbytes,
+            TABLE_BATCH * tw * 4)
+        t["path"] = "staged" if staged else "global"
+        t["chain"] = TABLE_BATCH
+        t.update(_chain_ms(np, torch, rng, dev, TABLE_BATCH, ts, tw,
+                           shared=ts * tw * 4 <= 48 * 1024))
+        clear()
+        t["launches_per_call"] = _one_launch(
+            card, parity, f"witness_record_seq ({t['path']}, {ts} x {tw})",
+            run, "witness_seq_kernel")
     for name, t in out.items():
         dms = ("not measured" if t["device_ms"] is None
                else f"{t['device_ms']:.4f} ms")
         chain = ("" if "chain" not in t else
-                 f"; a chain of {t['chain']} dependent steps, "
-                 f"{t['ms'] / t['chain'] * 1e6:.1f} ns a step; the least "
-                 f"chain of as many steps (chain_probe.cu, CUDA events) "
-                 f"{t['chain_global_ms']:.4f} ms in global memory, "
-                 f"{t['chain_shared_ms']:.4f} ms in shared memory")
+                 f"; {t['path']} path, a chain of {t['chain']} dependent "
+                 f"steps, "
+                 + ("" if t["device_ms"] is None else
+                    f"{t['device_ms'] / t['chain'] * 1e6:.1f} ns a step of "
+                    f"device time; ")
+                 + f"the least chain of as many steps (chain_probe.cu, "
+                 f"CUDA events) {t['chain_global_ms']:.4f} ms in global "
+                 f"memory, " + ("not measured" if "chain_shared_ms" not in t
+                                else f"{t['chain_shared_ms']:.4f} ms")
+                 + " in shared memory")
         say(card, f"time {name}: {t['ms']:.4f} ms per call (CUDA events), "
                   f"device time {dms} (profiler), plain "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.3e} ms "

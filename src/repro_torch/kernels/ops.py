@@ -33,6 +33,7 @@ registry, as the JAX package counts jitted-program launches.  Each
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -119,7 +120,8 @@ WITNESS_GC = CudaKernel(
 WITNESS_RECORD_SEQ = CudaKernel(
     "witness_record_seq", _CSRC + "witness_seq.cu",
     "src/repro/kernels/witness_record.py:385",
-    {"witness_seq_launch": [I, P, P, I, I] + [P] * 5})
+    {"witness_seq_launch": [I, P, P, I, I] + [P] * 5,
+     "witness_seq_path": [I, I, ctypes.POINTER(ctypes.c_int)]})
 
 GANG_KERNELS = (GANG_RECORD, GANG_FASTPATH, GANG_GC, GANG_GROUPS)
 TABLE_KERNELS = (KEYHASH, WITNESS_RECORD, FASTPATH_RECORD_SCAN, CONFLICT_SCAN)
@@ -230,9 +232,11 @@ def gang_groups_cuda(table: GangTable, n_sets: int, k_hi, k_lo, k_valid,
     if K > 1024:
         raise ValueError(f"gang_record_groups takes at most 1024 keys per "
                          f"group, got {K}")
-    reasons = torch.zeros(G, dtype=torch.int32, device=dev)
+    reasons = torch.empty(G, dtype=torch.int32, device=dev)
     qh = torch.empty_like(k_hi)
     ql = torch.empty_like(k_hi)
+    if G == 0:
+        return reasons, qh, ql
     m = _matrix(dev)
     GANG_GROUPS.call(
         "gang_groups_launch", G, K, _ptr(k_hi), _ptr(k_lo), _ptr(k_valid),
@@ -245,19 +249,27 @@ def gang_groups_cuda(table: GangTable, n_sets: int, k_hi, k_lo, k_valid,
 
 
 def gang_gc_cuda(table: GangTable, n_sets: int, g_hi, g_lo, g_rh, g_rl,
-                 g_lane, g_valid, aged_idx, do_age: bool):
+                 g_lane, g_valid, aged_idx, do_age: bool, *,
+                 g_lane_host: Optional[np.ndarray] = None,
+                 aged_host: Optional[np.ndarray] = None):
     """K4 on the card, one launch; see ``ref.gang_gc_plain`` for the
-    contract.  ``g_lane`` must lie in [0, L), as ``gc_operands`` checks on
-    the host; ``aged_idx`` must hold distinct lanes in [0, L), checked
-    here."""
+    contract.  ``g_lane`` must lie in [0, L) and ``aged_idx`` must hold
+    distinct lanes in [0, L), both checked here on the host: from
+    ``g_lane_host`` and ``aged_host``, the host arrays the device tensors
+    were copied from, where the caller has them (``gang_gc`` does), else
+    from one copy back of each."""
+    L = _n_lanes(table, n_sets)
+    # An entry's lane indexes the entry blocks' shared bitmap of aged
+    # lanes, and each tile of an aged lane has one owning block: a lane out
+    # of range would read or write past the bitmap, a repeated aged lane
+    # give a tile two owners.
+    _check_range("g_lane", g_lane.cpu().numpy() if g_lane_host is None
+                 else np.asarray(g_lane_host), L)
     n_aged = aged_idx.shape[0] if do_age else 0
     if n_aged:
-        # Each tile of an aged lane has one owning block, and the entry
-        # blocks mark the aged lanes in a shared bitmap: a repeated lane
-        # would give a tile two owners, one out of range a write past the
-        # bitmap.  At most L values, one copy to the host.
-        aged = aged_idx.cpu().numpy()
-        _check_range("aged_idx", aged, _n_lanes(table, n_sets))
+        aged = (aged_idx.cpu().numpy() if aged_host is None
+                else np.asarray(aged_host))
+        _check_range("aged_idx", aged, L)
         if np.unique(aged).size != n_aged:
             raise ValueError(f"aged_idx repeats a lane: {aged.tolist()}")
     dev = g_hi.device
@@ -273,8 +285,8 @@ def gang_gc_cuda(table: GangTable, n_sets: int, g_hi, g_lo, g_rh, g_rl,
         return cleared
     GANG_GC.call(
         "gang_gc_launch", G, _ptr(g_hi), _ptr(g_lo), _ptr(g_rh), _ptr(g_rl),
-        _ptr(g_lane), _ptr(g_valid), n_aged, _ptr(aged_idx),
-        _n_lanes(table, n_sets), n_sets, W, *(_ptr(p) for p in table),
+        _ptr(g_lane), _ptr(g_valid), n_aged, _ptr(aged_idx), L, n_sets, W,
+        *(_ptr(p) for p in table),
         _ptr(cleared), _ptr(way_mask), _stream(dev))
     GANG_GC.launches += 1
     return cleared
@@ -427,15 +439,31 @@ def witness_gc_cuda(table: WitnessTable, g_hi, g_lo) -> None:
     WITNESS_GC.launches += 1
 
 
+def witness_record_seq_staged(table: WitnessTable) -> bool:
+    """Whether K11 walks ``table`` staged in shared memory (its three
+    planes fit the shared memory a block may opt into on the table's
+    device) rather than in global memory."""
+    _check_cuda(table.occ.device, *table)
+    S, W = table.occ.shape
+    staged = ctypes.c_int(0)
+    WITNESS_RECORD_SEQ.call("witness_seq_path", S, W, ctypes.byref(staged))
+    return bool(staged.value)
+
+
 def witness_record_seq_cuda(table: WitnessTable, q_hi, q_lo) -> torch.Tensor:
-    """K11 on the card; see ``ref.witness_record_seq_plain`` for the
-    contract.  No queries, no launch."""
+    """K11 on the card, one launch (staged in shared memory or walking
+    global memory, as :func:`witness_record_seq_staged` says); see
+    ``ref.witness_record_seq_plain`` for the contract.  No queries, no
+    launch."""
     dev = q_hi.device
     _check_cuda(dev, *table, q_hi, q_lo)
-    accepted = torch.zeros_like(q_hi)
+    S, W = table.occ.shape
+    if W > 256:
+        raise ValueError(f"witness_record_seq takes at most 256 ways, got "
+                         f"{W}")
+    accepted = torch.empty_like(q_hi)
     if q_hi.shape[0] == 0:
         return accepted
-    S, W = table.occ.shape
     WITNESS_RECORD_SEQ.call("witness_seq_launch", q_hi.shape[0], _ptr(q_hi),
                             _ptr(q_lo), S, W, *(_ptr(p) for p in table),
                             _ptr(accepted), _stream(dev))
@@ -621,11 +649,13 @@ def gang_record_groups(table: GangTable, n_sets: int, key_hi, key_lo,
                             ql.view(np.uint32)[:G, :K], table, counters)
 
 
-def gc_operands(table: GangTable, n_sets: int, g_hi, g_lo, g_rpc_hi,
-                g_rpc_lo, g_lane, aged_lanes):
-    """Host inputs of ``gang_gc`` -> the padded device operands of
-    ``gang_gc_cuda`` / ``ref.gang_gc_plain``: g_hi, g_lo, g_rh, g_rl,
-    g_lane, g_valid, aged_idx (the ids of the lanes to age)."""
+def gc_host_operands(table: GangTable, n_sets: int, g_hi, g_lo, g_rpc_hi,
+                     g_rpc_lo, g_lane, aged_lanes):
+    """Host inputs of ``gang_gc`` -> the padded host arrays of the operands
+    of ``gang_gc_cuda`` / ``ref.gang_gc_plain``: g_hi, g_lo, g_rh, g_rl,
+    g_lane, g_valid, aged_idx (the ids of the lanes to age); ``g_lane``
+    checked in range, ``aged_idx`` distinct and in range by
+    construction."""
     g_hi = np.asarray(g_hi, np.uint32)
     (G,) = g_hi.shape
     L = _n_lanes(table, n_sets)
@@ -639,8 +669,17 @@ def gc_operands(table: GangTable, n_sets: int, g_hi, g_lo, g_rpc_hi,
         np.asarray(g_rpc_hi, np.uint32), np.asarray(g_rpc_lo, np.uint32),
         g_lane,
     )
-    return _to_device(table.occ.device, g_hi, g_lo, g_rh, g_rl, g_lane,
-                      valid, np.flatnonzero(aged == 1).astype(np.int32))
+    return (g_hi, g_lo, g_rh, g_rl, g_lane, valid,
+            np.flatnonzero(aged == 1).astype(np.int32))
+
+
+def gc_operands(table: GangTable, n_sets: int, g_hi, g_lo, g_rpc_hi,
+                g_rpc_lo, g_lane, aged_lanes):
+    """Host inputs of ``gang_gc`` -> the padded device operands of
+    ``gang_gc_cuda`` / ``ref.gang_gc_plain`` (:func:`gc_host_operands`,
+    in one copy)."""
+    return _to_device(table.occ.device, *gc_host_operands(
+        table, n_sets, g_hi, g_lo, g_rpc_hi, g_rpc_lo, g_lane, aged_lanes))
 
 
 def gang_gc(table: GangTable, n_sets: int, g_hi, g_lo, g_rpc_hi, g_rpc_lo,
@@ -655,9 +694,13 @@ def gang_gc(table: GangTable, n_sets: int, g_hi, g_lo, g_rpc_hi, g_rpc_lo,
     Returns (cleared [G] numpy bit per entry, table)."""
     _count_dispatch()
     G = np.asarray(g_hi).shape[0]
-    operands = gc_operands(table, n_sets, g_hi, g_lo, g_rpc_hi, g_rpc_lo,
-                           g_lane, aged_lanes)
-    fn = _pick(table.occ.device, gang_gc_cuda, ref.gang_gc_plain)
+    host = gc_host_operands(table, n_sets, g_hi, g_lo, g_rpc_hi, g_rpc_lo,
+                            g_lane, aged_lanes)
+    operands = _to_device(table.occ.device, *host)
+    fn = _pick(table.occ.device,
+               functools.partial(gang_gc_cuda, g_lane_host=host[4],
+                                 aged_host=host[6]),
+               ref.gang_gc_plain)
     (clr,) = _to_host(fn(table, n_sets, *operands, do_age))
     return clr[:G], table
 

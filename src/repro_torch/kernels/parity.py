@@ -55,14 +55,19 @@ GC_MISS = 13
 GC_STALE = 14
 GC_REPEAT = 15
 GC_EMPTY = 16
-N_CODES = 17
+# The grouped record's accepted groups in which two valid keys chose one
+# way (a key repeated as a DUP, under two classes: the later key's write
+# must win).
+GROUP_SAME_WAY = 17
+N_CODES = 18
 
 # The outcomes (reason codes; gc: cleared bits) each kernel's inputs must
 # reach.  A fused batch carries fresh rpcs only, so its record stage never
 # meets a DUP; that stage is the gang_record kernel, whose own inputs do.
 # The single-table kernels return accept and conflict bits; their outcomes
 # are read from the plain version on the same inputs.
-BRANCHES = {"gang_record": (1, 2, 3, 4), "gang_record_groups": (1, 2, 3, 4),
+BRANCHES = {"gang_record": (1, 2, 3, 4),
+            "gang_record_groups": (1, 2, 3, 4, GROUP_SAME_WAY),
             "gang_gc": (0, 1), "gang_fastpath": (1, 3, 4),
             "keyhash": (), "witness_record": (1, 3, 4, 5),
             "fastpath_record_scan": (1, 3, 4, 5, SCAN_HIT, SCAN_COMMUTES),
@@ -500,6 +505,180 @@ def copies_operands(table: ref.GangTable, n_sets: int, key_hi, key_lo, lanes,
     return rows, f, qh, ql, rh, rl, cls
 
 
+GANG_GROUPS_CORNERS = ("one_key", "no_valid_key", "padding_only",
+                       "full_row", "dup_two_classes", "dup_all_retries",
+                       "32_keys", "64_keys", "long_chain")
+
+
+def _groups(keys, lanes, rpc_lo, cls=None, K=None) -> Dict[str, np.ndarray]:
+    """``gang_record_groups`` inputs from per-group lists of RAW (hi, lo)
+    keys, padded to ``K`` keys (default the longest group); ``cls`` per
+    group a list of classes, else each key takes its rpc's class."""
+    G = len(keys)
+    K = K or max([len(k) for k in keys] + [1])
+    key_hi = np.zeros((G, K), np.uint32)
+    key_lo = np.zeros((G, K), np.uint32)
+    key_valid = np.zeros((G, K), np.int32)
+    rpc_lo = np.asarray(rpc_lo, np.uint32)
+    key_cls = np.repeat(cls_of_rpc(rpc_lo)[:, None], K, axis=1)
+    for g, ks in enumerate(keys):
+        for k, (h, l) in enumerate(ks):
+            key_hi[g, k], key_lo[g, k], key_valid[g, k] = h, l, 1
+        if cls is not None and cls[g] is not None:
+            key_cls[g, :len(cls[g])] = cls[g]
+    return dict(key_hi=key_hi, key_lo=key_lo, key_valid=key_valid,
+                lanes=np.asarray(lanes, np.int32),
+                rpc_hi=np.full(G, 7, np.uint32), rpc_lo=rpc_lo,
+                key_cls=key_cls.astype(np.int32))
+
+
+def gang_groups_corners(rng: np.random.Generator, n_chain: int = 1024):
+    """``gang_record_groups`` cases at the corners of K5's design, in the
+    order of ``GANG_GROUPS_CORNERS``: each a dict of ``planes`` (a 4 x 64
+    x 4 gang about half full of pool keys under rpcs 7:0..23), ``n_sets``
+    and the batch ``grp``.  One group of one key (G = K = 1); a valid group
+    with no valid key between two others (reason 1, nothing written,
+    counted); no groups (the op pads to padding groups only); a group of
+    W + 1 fresh keys in one row (FULL, the table untouched) then one that
+    fits; held keys repeated in a group under two classes and the group's
+    own rpc, alone, around a fresh key, and a fresh key inserted then
+    repeated so (both DUPs of one way: the later class wins); six groups
+    of fresh keys, some in one row, then the same six again (dup-all
+    retries); groups of up to 32 and 64 keys (more than one warp), the
+    first eight fresh keys of lane 1, three in one row, the second their
+    retry with the first key again under another class; and ``n_chain``
+    groups of up to two keys over one lane (a long chain, staged in
+    several tiles).  No row
+    holds a key twice, so none holds it both under a group's rpc and under
+    a conflicting one."""
+    n_rpcs, L, S, W = 24, 4, 64, 4
+    pool = key_pool(rng, 4 * S * W, S)
+    planes = gang_planes(rng, pool, L, S, W, n_rpcs)
+    fresh = key_pool(rng, 16 * S * W, S)
+    khi, klo, occ, _rhi, rlo, _age = planes
+    held = np.argwhere(occ > 0)
+    index = {(int(h), int(lo)): k for k, (h, lo) in
+             enumerate(zip(pool.q_hi, pool.q_lo))}
+    rpc = iter(range(100, 10_000))
+    out = []
+
+    def case(grp):
+        out.append(dict(planes=planes, n_sets=S, grp=grp))
+
+    def raw(bucket, n, at=0):
+        return [(fresh.hi[k], fresh.lo[k]) for k in bucket[at:at + n]]
+
+    def roomy(lane, n):
+        """The sets whose row in ``lane`` has ``n`` free ways or more."""
+        return np.flatnonzero((occ[lane * S:(lane + 1) * S] == 0).sum(1) >= n)
+
+    def held_key(i):
+        """The RAW key, lane and rpc of held slot i (row, way)."""
+        r, w = held[i]
+        k = index[(int(khi[r, w]), int(klo[r, w]))]
+        return (pool.hi[k], pool.lo[k]), int(r) // S, int(rlo[r, w])
+
+    k = int(rng.integers(0, len(pool.hi)))
+    case(_groups([[(pool.hi[k], pool.lo[k])]], [int(rng.integers(0, L))],
+                 [int(rng.integers(0, n_rpcs))]))
+    grp = group_batch(rng, pool, 3, 2, L, n_rpcs)
+    grp["key_valid"][1] = 0
+    case(grp)
+    case(_groups([], [], [], K=1))
+
+    s = next(s for s in range(S) if (occ[2 * S + s] == 0).any()
+             and fresh.by_set[s].size >= W + 2)
+    case(_groups([raw(fresh.by_set[s], W + 1), raw(fresh.by_set[s], 1, W + 1)],
+                 [2, 2], [next(rpc), next(rpc)]))
+
+    a, b = (int(c) for c in CLASSES[1:3])
+    picks = rng.choice(len(held), 2, replace=False)
+    (x, lane_x, rpc_x), (y, lane_y, rpc_y) = (held_key(i) for i in picks)
+    z = raw(fresh.by_set[int(rng.choice(roomy(3, 1)))], 1)[0]
+    w_fresh = raw(fresh.by_set[int(rng.choice(roomy(lane_y, 1)))], 1)[0]
+    rz = next(rpc)
+    case(_groups([[x, x], [y, w_fresh, y], [z], [z, z]],
+                 [lane_x, lane_y, 3, 3], [rpc_x, rpc_y, rz, rz],
+                 cls=[[a, b], [b, 0, a], None, [a, b]]))
+
+    keys, lanes, rpcs = [], [], []
+    for g in range(6):
+        n, lane = int(rng.integers(1, 4)), g % L
+        s = int(rng.choice(roomy(lane, 3)))
+        keys.append(raw(fresh.by_set[s], n, 4 * g))
+        lanes.append(lane)
+        rpcs.append(next(rpc))
+    case(_groups(keys + keys, lanes + lanes, rpcs + rpcs))
+
+    for K in (32, 64):
+        s1 = int(rng.choice(roomy(1, 3)))
+        others = rng.choice(np.setdiff1d(roomy(1, 1), [s1]), 5,
+                            replace=False)
+        ks = raw(fresh.by_set[s1], 3) + [raw(fresh.by_set[int(v)], 1)[0]
+                                         for v in others]
+        r = next(rpc)
+        head = _groups([ks, ks + ks[:1]], [1, 1], [r, r],
+                       cls=[None, [int(cls_of_rpc(r))] * 8 + [a]], K=K)
+        grp = group_batch(rng, pool, 12, K, L, n_rpcs)
+        case({name: np.concatenate([head[name], grp[name]]) for name in grp})
+
+    grp = group_batch(rng, pool, n_chain, 2, L, n_rpcs)
+    grp["lanes"][:] = 1
+    case(grp)
+    return out
+
+
+def groups_codes(table: ref.GangTable, n_sets: int, reasons, k_hi, k_lo,
+                 k_valid, lanes, r_hi, r_lo) -> np.ndarray:
+    """K5's coverage codes: the reason of each valid group, and
+    ``GROUP_SAME_WAY`` for each accepted group with a valid key repeated
+    that the table after the call holds once in its row under the group's
+    rpc (so both copies chose one way; repeated keys that insert take
+    two)."""
+    reasons = reasons.cpu().numpy()
+    codes = [reasons[reasons > 0]]
+    qh, ql = (t.cpu().numpy().view(np.uint32)
+              for t in ref.keyhash2x32(k_hi.reshape(-1), k_lo.reshape(-1)))
+    G, K = k_hi.shape
+    qh, ql = qh.reshape(G, K), ql.reshape(G, K)
+    valid = k_valid.cpu().numpy() == 1
+    khi, klo, occ, rhi, rlo, _age = ref.gang_to_numpy(table)
+    lanes, r_hi, r_lo = (t.cpu().numpy() for t in (lanes, r_hi, r_lo))
+    for g in np.flatnonzero((reasons == 1) | (reasons == 2)):
+        keys = np.stack([qh[g][valid[g]], ql[g][valid[g]]], 1)
+        uniq, n = np.unique(keys, axis=0, return_counts=True)
+        for h, lo in uniq[n > 1]:
+            row = int(lanes[g]) * n_sets + int(lo & np.uint32(n_sets - 1))
+            once = ((occ[row] > 0) & (khi[row] == h) & (klo[row] == lo)
+                    & (rhi[row] == np.uint32(r_hi[g]))
+                    & (rlo[row] == np.uint32(r_lo[g]))).sum() == 1
+            if once:
+                codes.append(np.array([GROUP_SAME_WAY]))
+    return reason_coverage(np.concatenate(codes), N_CODES)
+
+
+def _groups_corner(c: dict, device: torch.device, trim: bool):
+    """One :func:`gang_groups_corners` case through K5 and its plain
+    version on identical copies of its gang, as the op pads it or trimmed
+    to its real groups and keys; returns (max_abs_err, outputs,
+    coverage)."""
+    base = ref.gang_from_numpy(c["planes"], device)
+    S = c["n_sets"]
+    L = base.occ.shape[0] // S
+    ta, tb = base.clone(), base.clone()
+    ca, cb = (torch.zeros((L, ref.N_REASON_CODES), dtype=torch.int32,
+                          device=device) for _ in range(2))
+    args = ops.groups_operands(base, S, **c["grp"])
+    if trim:
+        G, K = c["grp"]["key_hi"].shape
+        args = ([a[:G, :K].contiguous() for a in args[:4]]
+                + [a[:G] for a in args[4:]])
+    ra = ops.gang_groups_cuda(ta, S, *args, ca)
+    rb = ref.gang_groups_plain(tb, S, *args, cb)
+    pairs = list(zip(ra, rb)) + list(zip(ta, tb)) + [(ca, cb)]
+    return (*_diff(pairs), groups_codes(ta, S, ra[0], *args[:3], *args[4:7]))
+
+
 # ---------------------------------------------------------------------------
 # Kernel against plain version, on the same device tensors
 # ---------------------------------------------------------------------------
@@ -598,15 +777,17 @@ def _record_corner(c: dict, device: torch.device, trim: bool):
 
 def check_kernels(planes, n_sets: int, rec: dict, grp: dict, gc: dict,
                   fp: dict, f: int, device="cuda", fp_corners=(),
-                  gc_corners=(), rec_corners=()) -> List[Parity]:
+                  gc_corners=(), rec_corners=(),
+                  grp_corners=()) -> List[Parity]:
     """Run each CUDA kernel and its plain version on identical copies of
     the same device tensors; compare every output, every table plane, the
     rings and the counter plane.  ``fp_corners`` (:func:`fastpath_corners`)
     are more K3 cases and ``gc_corners`` (:func:`gc_corners`) more K4
     cases, each run as the op pads it and trimmed to its real batch;
     ``rec_corners`` (:func:`gang_record_corners`) more K2 cases, the same
-    (a ``rep_f`` case once, as K3's stage).  Returns one :class:`Parity`
-    per kernel."""
+    (a ``rep_f`` case once, as K3's stage), and ``grp_corners``
+    (:func:`gang_groups_corners`) more K5 cases, the same.  Returns one
+    :class:`Parity` per kernel."""
     device = torch.device(device)
     base = ref.gang_from_numpy(planes, device)
     L = base.occ.shape[0] // n_sets
@@ -632,9 +813,12 @@ def check_kernels(planes, n_sets: int, rec: dict, grp: dict, gc: dict,
     args = ops.groups_operands(base, n_sets, **grp)
     ra = ops.gang_groups_cuda(ta, n_sets, *args, ca)
     rb = ref.gang_groups_plain(tb, n_sets, *args, cb)
-    out.append(Parity("gang_record_groups", *_diff(
-        list(zip(ra, rb)) + list(zip(ta, tb)) + [(ca, cb)]),
-        _coverage(ra[0][args[7] == 1])))
+    parts = [(*_diff(list(zip(ra, rb)) + list(zip(ta, tb)) + [(ca, cb)]),
+              groups_codes(ta, n_sets, ra[0], *args[:3], *args[4:7]))]
+    for c in grp_corners:
+        for trim in (False, True):
+            parts.append(_groups_corner(c, device, trim))
+    out.append(_merge("gang_record_groups", parts))
 
     parts = []
     cases = [(planes, gc, True, None), (planes, gc, False, None)]
@@ -1176,13 +1360,15 @@ def check_txn_kernels(probe_planes, probes, gcs, seqs,
 
 
 __all__ = ["ALL_ONES", "BRANCHES", "CLASSES", "GANG_RECORD_CORNERS",
-           "GC_CORNERS", "GC_EMPTY", "GC_HIT", "GC_MISS", "GC_REPEAT",
+           "GANG_GROUPS_CORNERS", "GC_CORNERS", "GC_EMPTY", "GC_HIT",
+           "GROUP_SAME_WAY", "GC_MISS", "GC_REPEAT",
            "GC_STALE", "KeyPool", "N_CODES", "Parity", "SCAN_COMMUTES",
            "SCAN_CORNERS", "SCAN_HIT", "TABLE_RECORD_CORNERS", "TXN_DUP_KEY",
            "TXN_OWN_PASS", "TXN_PADDED", "TXN_SAME_SET", "check_kernels",
            "check_table_kernels", "check_txn_kernels", "cls_of_rpc",
            "copies_operands", "fastpath_batch", "fastpath_corners",
-           "gang_planes", "gang_record_corners", "gc_batch", "gc_codes",
+           "gang_groups_corners", "gang_planes", "gang_record_corners",
+           "gc_batch", "gc_codes", "groups_codes",
            "gc_corners", "gc_entries", "gc_planes", "group_batch", "held",
            "key_pool", "launches_per_call", "reason_coverage", "record_batch",
            "scan_batch", "scan_codes", "scan_corners", "table_batch",

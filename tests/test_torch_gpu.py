@@ -38,6 +38,7 @@ def case(request):
         corners=parity.fastpath_corners(rng, 1000, NS, 1024, F, L, 32, 24),
         gc_corners=parity.gc_corners(rng, planes, S, 24),
         rec_corners=parity.gang_record_corners(rng, 1024, F),
+        grp_corners=parity.gang_groups_corners(rng),
     )
 
 
@@ -55,12 +56,17 @@ def test_kernel_matches_plain_version(cuda, case, kernel):
     and as given: 3072 queries in one row (taken in chunks), DUP and
     CONFLICT in both orders, a row driven FULL, 1 and 64 ways, fewer rows
     than blocks, padding only, no counters, and K3's record stage of 1024
-    ops x 3 lanes."""
+    ops x 3 lanes.  gang_record_groups also at its corners, padded and as
+    given: G = K = 1, a group with no valid key, padding only, a FULL
+    group, a key repeated as a DUP under two classes, dup-all retries, 32
+    and 64 keys a group (more than one warp) and 1024 groups over one
+    lane."""
     results = parity.check_kernels(case["planes"], S, case["rec"],
                                    case["grp"], case["gc"], case["fp"], F,
                                    device=cuda, fp_corners=case["corners"],
                                    gc_corners=case["gc_corners"],
-                                   rec_corners=case["rec_corners"])
+                                   rec_corners=case["rec_corners"],
+                                   grp_corners=case["grp_corners"])
     torch.cuda.synchronize()
     got = {r.name: r for r in results}[kernel]
     assert got.outputs > 0
@@ -111,10 +117,11 @@ def test_table_kernel_matches_plain_version(cuda, table_case, kernel):
 
 
 def test_redesigned_kernels_launch_once_per_call(cuda, case, table_case):
-    """fastpath_record_scan, witness_record, gang_gc, conflict_scan and
-    gang_record each launch only their own kernel (no sort, no prep);
-    gang_fastpath launches its own kernel and gang_record's, and no
-    other."""
+    """fastpath_record_scan, witness_record, gang_gc, conflict_scan,
+    gang_record, gang_record_groups and witness_record_seq (staged and
+    walking global memory) each launch only their own kernel (no sort, no
+    prep, no fill); gang_fastpath launches its own kernel and
+    gang_record's, and no other."""
     from repro_torch.kernels import ops, ref
 
     def only(fn, *kernels):
@@ -141,6 +148,18 @@ def test_redesigned_kernels_launch_once_per_call(cuda, case, table_case):
     only(lambda: ops.gang_gc_cuda(gang, S, *args, True), "gang_gc_kernel")
     args = ops.record_operands(gang, S, **case["rec"])
     only(lambda: ops.gang_record_cuda(gang, S, *args), "gang_record_kernel")
+    for c in (case["grp"], case["grp_corners"][0]["grp"]):
+        args = ops.groups_operands(gang, S, **c)
+        only(lambda: ops.gang_groups_cuda(gang, S, *args),
+             "gang_groups_kernel")
+    rng = np.random.default_rng(5)
+    for s_, w_, staged in ((1024, 4, True), (4096, 8, False)):
+        table = ref.WitnessTable.empty(s_, w_, device=cuda)
+        assert ops.witness_record_seq_staged(table) == staged
+        lanes = rng.integers(0, 2**32, (2, 512), dtype=np.uint64)
+        args = ops.seq_operands(table, *lanes.astype(np.uint32))
+        only(lambda: ops.witness_record_seq_cuda(table, *args),
+             "witness_seq_kernel")
 
     gang = ref.gang_from_numpy(case["planes"], cuda)
     fpc = dict(case["fp"])
@@ -197,7 +216,10 @@ def test_cluster_on_the_card_matches_the_cpu(cuda):
 def txn_case(request):
     """K9's chain over a 64x4 table near full, K10 at 64x4 and 256x1 with
     G of 0, 50 and 300 (more than one staged tile), K11 at 64x4 on an
-    empty and a pre-filled table, and at 16x40 (ways in two chunks)."""
+    empty and a pre-filled table, at 16x40 (ways in two chunks), at 32x128
+    (four chunks, a staged block of 512 threads), at 2048x4 (98,304 B
+    staged in shared memory, over the 48 KB a block has without opting
+    in) and at 4096x8 (393,216 B: global memory)."""
     rng = np.random.default_rng(request.param)
     pool = parity.key_pool(rng, 512, 64)
     planes = parity.table_planes(rng, pool, 64, 4, fill=1.5)
@@ -208,7 +230,8 @@ def txn_case(request):
         gp = parity.gc_planes(rng, parity.key_pool(rng, 4 * S * W, S), S, W)
         gcs += [(gp, parity.gc_entries(rng, gp, G)) for G in (0, 50, 300)]
     seqs = []
-    for S, W, fill in ((64, 4, 0.0), (64, 4, 0.5), (16, 40, 0.5)):
+    for S, W, fill in ((64, 4, 0.0), (64, 4, 0.5), (16, 40, 0.5),
+                       (32, 128, 0.5), (2048, 4, 0.5), (4096, 8, 0.5)):
         p = parity.key_pool(rng, 4 * S * W, S)
         seqs.append((parity.table_planes(rng, p, S, W, fill=fill),
                      parity.table_batch(rng, p, 1000, W)))

@@ -235,6 +235,64 @@ def test_gang_record_groups_matches_ref(seed):
     assert all(parity.reason_coverage(res.reasons)[1:] > 0)
 
 
+def _groups_corner(seed, corner, trim):
+    """One ``parity.gang_groups_corners`` case through the plain version on
+    the operands the kernel takes (the op's padded groups, or trimmed to
+    the real groups and keys), held against ``ref_gang_record`` with one
+    group per real group and its valid keys.  Returns (reasons of the real
+    groups, coverage codes)."""
+    c = parity.gang_groups_corners(np.random.default_rng(seed))[corner]
+    planes, n_sets, grp = c["planes"], c["n_sets"], c["grp"]
+    G, K = grp["key_hi"].shape
+    table = gang_from_numpy(planes, device="cpu")
+    counters = torch.zeros((L, 5), dtype=torch.int32)
+    args = ops.groups_operands(table, n_sets, **grp)
+    if trim:
+        args = ([a[:G, :K].contiguous() for a in args[:4]]
+                + [a[:G] for a in args[4:]])
+    rsn, qh, ql = ref.gang_groups_plain(table, n_sets, *args, counters)
+    codes = parity.groups_codes(table, n_sets, rsn, *args[:3], *args[4:7])
+    mh, ml = jax_np_keyhash2x32(args[0].numpy().view(np.uint32),
+                                args[1].numpy().view(np.uint32))
+    np.testing.assert_array_equal(qh.numpy().view(np.uint32), mh)
+    np.testing.assert_array_equal(ql.numpy().view(np.uint32), ml)
+    groups = [(int(grp["lanes"][g]), (int(grp["rpc_hi"][g]),
+                                      int(grp["rpc_lo"][g])),
+               [(int(mh[g, k]), int(ml[g, k]), int(grp["key_cls"][g, k]))
+                for k in np.flatnonzero(grp["key_valid"][g] == 1)])
+              for g in range(G)]
+    want, want_table = ref_gang_record(JaxGangTable(*planes), n_sets, groups)
+    rsn = rsn.numpy()
+    np.testing.assert_array_equal(rsn[:G], np.asarray(want, np.int64))
+    assert not rsn[G:].any()                 # padding groups: reason 0
+    _planes_equal(table, want_table)
+    np.testing.assert_array_equal(
+        counters.numpy(), _counts(grp["lanes"], np.asarray(want, np.int64)))
+    return rsn[:G], codes
+
+
+@pytest.mark.parametrize("trim", [False, True], ids=["padded", "as_given"])
+@pytest.mark.parametrize("corner", range(len(parity.GANG_GROUPS_CORNERS)),
+                         ids=list(parity.GANG_GROUPS_CORNERS))
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gang_record_groups_corner_matches_ref(seed, corner, trim):
+    """K5's corners (``parity.gang_groups_corners``) through its plain
+    version, as the op pads them and as given, against the JAX oracle;
+    each corner reaches what it is there for."""
+    rsn, codes = _groups_corner(seed, corner, trim)
+    name = parity.GANG_GROUPS_CORNERS[corner]
+    expect = {"one_key": lambda: rsn.shape == (1,) and rsn[0] > 0,
+              "no_valid_key": lambda: rsn[1] == 1,
+              "padding_only": lambda: rsn.size == 0,
+              "full_row": lambda: rsn[0] == 4,
+              "dup_two_classes": lambda: codes[parity.GROUP_SAME_WAY] >= 2,
+              "dup_all_retries": lambda: (rsn[6:] == 2).sum() >= 3,
+              "32_keys": lambda: codes[parity.GROUP_SAME_WAY] >= 1,
+              "64_keys": lambda: codes[parity.GROUP_SAME_WAY] >= 1,
+              "long_chain": lambda: all(codes[1:5] > 0)}[name]
+    assert expect(), (name, rsn, codes)
+
+
 def test_gang_record_groups_same_row_keys_take_distinct_ways():
     """Two keys of one group in one row reserve two ways, as the Python
     witness's placement loop does; a third key with no way left rejects
@@ -557,3 +615,36 @@ def test_gang_gc_cuda_refuses_bad_aged_lanes(aged, match):
     args[-1] = torch.tensor(aged, dtype=torch.int32)
     with pytest.raises(ValueError, match=match):
         ops.gang_gc_cuda(table, S, *args, True)
+
+
+@pytest.mark.parametrize("lane", [L, -1], ids=["past_the_end", "negative"])
+def test_gang_gc_cuda_refuses_bad_g_lane(lane):
+    """An entry's lane indexes K4's shared bitmap of aged lanes, so the
+    wrapper checks ``g_lane`` before it launches (here, before it refuses
+    the CPU tensors)."""
+    table = GangTable.empty(S, W, L, device="cpu")
+    args = list(gc_operands(table, S, [1], [2], [3], [4], [0],
+                            np.zeros(L, np.int32)))
+    args[4] = torch.full_like(args[4], lane)
+    with pytest.raises(ValueError, match="g_lane out of range"):
+        ops.gang_gc_cuda(table, S, *args, True)
+
+
+def test_gang_gc_cuda_checks_the_host_lanes_it_is_given():
+    """Given the host arrays the operands were copied from (as ``gang_gc``
+    passes them), the wrapper checks those and copies nothing back: bad
+    device lanes pass the check when the host lanes are good, and bad host
+    lanes are refused whatever the device holds."""
+    table = GangTable.empty(S, W, L, device="cpu")
+    aged = np.zeros(L, np.int32)
+    aged[[1, 3]] = 1
+    host = ops.gc_host_operands(table, S, [1], [2], [3], [4], [0], aged)
+    args = list(gc_operands(table, S, [1], [2], [3], [4], [0], aged))
+    args[4] = torch.full_like(args[4], L)
+    args[6] = torch.tensor([1, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA launcher"):
+        ops.gang_gc_cuda(table, S, *args, True, g_lane_host=host[4],
+                         aged_host=host[6])
+    with pytest.raises(ValueError, match="aged_idx repeats a lane"):
+        ops.gang_gc_cuda(table, S, *args, True, g_lane_host=host[4],
+                         aged_host=np.array([3, 3], np.int32))
