@@ -68,8 +68,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    bit: txn_probe (K9) as a chain of 2000 probes of 1..16 keys over a
    1024 x 4 table about 90% full (conflicts, FULL rejects that leave the
    table untouched, own-rpc retries, same-set inserters, duplicate keys,
-   padding), kernel and plain chains in lockstep; witness_gc (K10) at
-   1024 x 4 and 4096 x 1 with G in {0, 50, 64, 1024}; witness_record_seq
+   padding), kernel and plain chains in lockstep, and the chains of K9's
+   corners (``parity.txn_corners``: 1024 keys in the distinct sets of
+   1024 x 4 then retried with and without own, 64 keys in one set (FULL)
+   then an exact fit across warps, every key own, a key repeated with and
+   without own and across warps, padding only, 1 and 64 ways, the raw
+   all-ones key, ops of 40 to 300 keys on 64 x 8); witness_gc (K10) at
+   1024 x 4 and 4096 x 1 with G in {0, 50, 64, 1024} and at the corners
+   of its join (``parity.table_gc_corners``: no entries, one, 4096 on
+   1024 x 4, one key 300 times, the mixed all-ones key held and stale,
+   zero entries against slots left zero, keys outside their set, 4096 x
+   1, 64 x 64 and 512 x 3); witness_record_seq
    (K11) at 1024 x 4 with B in {64, 512, 4096}, on an empty table and on
    one K6 filled with mixed classes, and with B = 4096 at 4096 x 4
    (196,608 B, staged in shared memory near the limit), 64 x 64 (staged,
@@ -130,12 +139,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    (``csrc/chain_probe.cu``, a probe and not a port: one thread, a
    dependent load and a store a step, in global and in shared memory).
    K11 is timed staged at 1024 x 4 (its row) and on its global path at
-   4096 x 8, K5 at G = K = 1 (its row) and at G = 64, K = 4, and gang_gc
+   4096 x 8, K5 at G = K = 1 (its row) and at G = 64, K = 4, K9 also at
+   K = 16 on a 1024 x 4 table at TXN_FILL (one warp) and at K = 1024 in
+   the distinct sets of 1024 x 4 (its block path), K10 also at one sync
+   batch (G = 50) and at 4096 entries, each K10 shape beside the
+   yardstick ``torch.isin`` on the packed 64-bit slot keys and a masked
+   fill of occ (more than one launch, so not a library row), and gang_gc
    as the op calls it (its lane checks on the host arrays, no copy back).
    For the kernels redesigned as one launch, the kernels each call
    launches under the profiler (fastpath_record_scan, witness_record,
    gang_gc, conflict_scan, gang_record_groups at both shapes,
-   witness_record_seq on both paths, and gang_record both as K3's record
+   witness_record_seq on both paths, txn_probe on its one-warp and its
+   block path (the launch's name says which), witness_gc at its three
+   shapes, and gang_record both as K3's record
    stage and as the op: their own kernel only; gang_fastpath: its own
    kernel and gang_record's, and no other) and gang_fastpath's own
    launch's device time apart from that stage.  Device times count each
@@ -351,8 +367,10 @@ def phase_table_parity(np, parity, card, device, sync, key_lanes):
 def phase_txn_parity(np, parity, card, device, sync):
     """K9-K11 against their plain versions at full size: a chain of
     TXN_PROBES probes of 1..16 keys over a 1024 x 4 table about 90% full
-    (a key pool of twice the slots, own set on a tenth of the held keys),
-    gc batches of GC_SIZES at 1024 x 4 and 4096 x 1, and the sequential
+    (a key pool of twice the slots, own set on a tenth of the held keys)
+    and the chains of ``parity.txn_corners``, gc batches of GC_SIZES at
+    1024 x 4 and 4096 x 1 and the cases of ``parity.table_gc_corners``,
+    and the sequential
     record at 1024 x 4 over SEQ_BATCHES on an empty table and on one that
     K6 filled with mixed classes, and at SEQ_TABLES with TABLE_BATCH
     queries on an empty table and on one that K6 half filled."""
@@ -394,12 +412,19 @@ def phase_txn_parity(np, parity, card, device, sync):
         for base in (_empty_planes(np, ts, tw), witness_table_to_numpy(half)):
             q = parity.table_batch(rng, tpool, TABLE_BATCH, tw)
             seqs.append((base, dict(q_hi=q["q_hi"], q_lo=q["q_lo"])))
+    probe_corners = parity.txn_corners(rng)
+    gc_corners = parity.table_gc_corners(rng)
     results = parity.check_txn_kernels(planes, probes, gcs, seqs,
-                                       device=device)
+                                       device=device,
+                                       probe_corners=probe_corners,
+                                       gc_corners=gc_corners)
     sync()
     say(card, f"parity: K9 chain from a table {(planes[2] > 0).mean():.3f} "
               f"full, K6-filled table {(filled[2] > 0).mean():.3f} full "
               f"for K11; K11 at B = {TABLE_BATCH} on " + "; ".join(paths))
+    say(card, f"parity: K9 corners {', '.join(parity.TXN_CORNERS)} "
+              f"({sum(len(c['probes']) for c in probe_corners)} probes); "
+              f"K10 corners {', '.join(parity.TABLE_GC_CORNERS)}")
     for r in results:
         say(card, f"parity {r.name}: {r.outputs} integers, "
                   f"max_abs_err {r.max_abs_err}, outcomes by code "
@@ -1627,21 +1652,35 @@ def phase_txn_times(np, torch, card, device, shapes):
     """K9-K11 at phase 6's shapes: one txn_probe of the probe-parity chain
     on its 64 x 4 table, the gc chain's witness_gc at 1024 x 4, and
     witness_record_seq of TABLE_BATCH lanes into an empty 1024 x 4 table.
-    Bounds count what this run's data needs: each operand once without
-    padding or valid flags, the three planes of each probed set once, each
-    table word the call changed, and for the gc the operations of a
-    sort-merge join of the held slots' keys against the entries."""
-    from repro_torch.kernels import WitnessTable, ops as kops, parity, ref
+    Beside them, K9 at K = 16 on a 1024 x 4 table at TXN_FILL and at K =
+    1024 (its block path), K10 at one sync batch (G = 50) and at 4096
+    entries, each with the torch.isin yardstick, and each kernel's launches
+    per call on each path.  Bounds count what this run's data needs: each
+    operand once without padding or valid flags, the three planes of each
+    probed set once, each table word the call changed, and for the gc the
+    operations of a sort-merge join of the held slots' keys against the
+    entries."""
+    from repro_torch.kernels import (
+        WitnessTable,
+        ops as kops,
+        parity,
+        ref,
+        witness_table_to_numpy,
+    )
 
     dev = torch.device(device)
     out = {}
 
-    def timed(kernel, plain, restore, nbytes, nops):
+    def timed(kernel, plain, restore, nbytes, nops, only=None):
+        """With ``only`` (the kernel's name), the device time restores the
+        state before each traced call and counts that kernel alone."""
         t = dict(ms=_event_ms(torch, kernel, restore, 50),
                  plain_ms=_event_ms(torch, plain, restore, 5),
                  bytes=nbytes, ops=nops, bound=_bound_ms(nbytes, nops))
         restore()
-        t["device_ms"] = _device_ms(torch, kernel)
+        t["device_ms"] = _device_ms(torch, kernel,
+                                    before=restore if only else None,
+                                    only=only)
         return t
 
     def restorer(table, table0):
@@ -1657,36 +1696,111 @@ def phase_txn_times(np, torch, card, device, shapes):
         torch.cuda.synchronize()
         return 4 * sum(int((a != b).sum()) for a, b in zip(before, table))
 
-    # K9: the last probe of phase 6's chain, on the 64 x 4 table it left.
-    table0 = shapes["probe_table"].clone()
-    table = table0.clone()
-    restore = restorer(table, table0)
-    hi, lo = shapes["probe"]
-    K = hi.size
-    pargs = kops.txn_probe_operands(table0, hi, lo)
-    sets = np.unique(ref.np_keyhash2x32(hi, lo)[1] & np.uint32(63)).size
-    nbytes = (K * 12 + sets * 4 * 12 + 4 + K * 12
-              + changed_bytes(lambda: kops.txn_probe_cuda(table, *pargs),
-                              table, restore))
-    out["txn_probe"] = timed(lambda: kops.txn_probe_cuda(table, *pargs),
-                             lambda: ref.txn_probe_plain(table, *pargs),
-                             restore, nbytes,
-                             K * (29 + 4 * 6) + K * (K - 1) // 2 * 3)
+    # K9: the last probe of phase 6's chain, on the 64 x 4 table it left
+    # (one warp; its row in the kernels' line); 16 fresh keys on a 1024 x 4
+    # table at TXN_FILL (one warp); and the first op of K9's first corner,
+    # 1024 keys in the 1024 distinct sets of a 1024 x 4 table with a free
+    # way in each (a block of 1024, accepts).
+    rng = np.random.default_rng(SEED + 8)
+    pool = parity.key_pool(rng, 2 * TABLE_SETS * TABLE_WAYS, TABLE_SETS)
+    full = parity.table_planes(rng, pool, TABLE_SETS, TABLE_WAYS,
+                               fill=TXN_FILL)
+    fresh = parity.key_pool(rng, 16, TABLE_SETS)
+    wide = parity.txn_corners(rng)[0]
+    for name, table0, (hi, lo), path in (
+            ("txn_probe", shapes["probe_table"], shapes["probe"], "one warp"),
+            ("txn_probe K=16 1024x4", full, (fresh.hi, fresh.lo), "one warp"),
+            ("txn_probe K=1024 1024x4", wide["planes"],
+             (wide["probes"][0]["key_hi"], wide["probes"][0]["key_lo"]),
+             "block")):
+        if not isinstance(table0, WitnessTable):
+            table0 = ref.witness_table_from_numpy(table0, dev)
+        table0 = table0.clone()
+        table = table0.clone()
+        restore = restorer(table, table0)
+        S, W = table0.occ.shape
+        K = hi.size
+        pargs = kops.txn_probe_operands(table0, hi, lo)
+        sets = np.unique(ref.np_keyhash2x32(hi, lo)[1]
+                         & np.uint32(S - 1)).size
 
-    # K10: the gc chain's batch on the table it cleared.
+        def run(table=table, pargs=pargs):
+            return kops.txn_probe_cuda(table, *pargs)
+
+        nbytes = (K * 12 + sets * W * 12 + 4 + K * 12
+                  + changed_bytes(run, table, restore))
+        restore()
+        out[name] = t = timed(
+            run, lambda table=table, pargs=pargs:
+            ref.txn_probe_plain(table, *pargs), restore, nbytes,
+            K * (29 + W * 6) + K * (K - 1) // 2 * 3,
+            only=None if name == "txn_probe" else "txn_probe_kernel")
+        restore()
+        t["accepted"] = bool(run()[0].item())
+        t["keys"], t["path"] = K, path
+        restore()
+        t["launches_per_call"] = _one_launch(
+            card, parity, f"{name} ({path}, K = {K} padded to "
+            f"{pargs[0].numel()}, {S} x {W})", run, "txn_probe_kernel")
+        kernel = next(iter(t["launches_per_call"]))
+        check(("<false>" in kernel) == (path == "block")
+              or "<" not in kernel,
+              f"{name} did not take the {path} path: {kernel}")
+
+    # K10: the gc chain's batch on the table it cleared (its row in the
+    # kernels' line), one sync batch of it (G = 50), and 4096 entries of
+    # gc_entries' mix on the same table; beside each the yardstick,
+    # torch.isin on the packed 64-bit slot keys against the entries and
+    # the masked fill of occ (more than one call, so not a library row).
     table0 = shapes["gc_table"]
-    table = table0.clone()
-    restore = restorer(table, table0)
     g_hi, g_lo = shapes["gc_entries"]
-    gargs = kops.table_gc_operands(table0, g_hi, g_lo)
-    occ = table0.occ.cpu().numpy().reshape(-1)
-    nbytes = (occ.size * 12 + g_hi.size * 8
-              + changed_bytes(lambda: kops.witness_gc_cuda(table, *gargs),
-                              table, restore))
-    out["witness_gc"] = timed(lambda: kops.witness_gc_cuda(table, *gargs),
-                              lambda: ref.witness_gc_plain(table, *gargs),
-                              restore, nbytes,
-                              _join_ops(int((occ > 0).sum()), g_hi.size))
+    planes0 = witness_table_to_numpy(table0)
+    more = parity.gc_entries(rng, planes0, 4096)
+    occ = planes0[2].reshape(-1)
+    keys = ((table0.keys_hi.to(torch.int64) << 32)
+            | (table0.keys_lo.to(torch.int64) & 0xFFFFFFFF))
+    for name, (eh, el) in (("witness_gc", (g_hi, g_lo)),
+                           ("witness_gc G=50", (g_hi[:50], g_lo[:50])),
+                           ("witness_gc G=4096", (more["g_hi"],
+                                                  more["g_lo"]))):
+        table = table0.clone()
+        restore = restorer(table, table0)
+        gargs = kops.table_gc_operands(table0, eh, el)
+
+        def run(table=table, gargs=gargs):
+            kops.witness_gc_cuda(table, *gargs)
+
+        nbytes = (occ.size * 12 + eh.size * 8
+                  + changed_bytes(run, table, restore))
+        out[name] = t = timed(
+            run, lambda table=table, gargs=gargs:
+            ref.witness_gc_plain(table, *gargs), restore, nbytes,
+            _join_ops(int((occ > 0).sum()), eh.size),
+            only=None if name == "witness_gc" else "witness_gc_kernel")
+        t["entries"] = int(eh.size)
+        ents = ((gargs[0].to(torch.int64) << 32)
+                | (gargs[1].to(torch.int64) & 0xFFFFFFFF))
+
+        def yardstick(table=table, ents=ents):
+            table.occ.masked_fill_(torch.isin(keys, ents) & (table.occ > 0),
+                                   0)
+
+        restore()
+        run()
+        want = table.occ.clone()
+        restore()
+        yardstick()
+        check(torch.equal(table.occ, want),
+              f"{name}: the isin yardstick and K10 clear different slots")
+        t["yardstick_ms"] = _event_ms(torch, yardstick, restore, 50)
+        restore()
+        t["yardstick_device_ms"] = _device_ms(torch, yardstick)
+        restore()
+        t["yardstick_kernels"] = parity.launches_per_call(yardstick)
+        restore()
+        t["launches_per_call"] = _one_launch(
+            card, parity, f"{name} (G = {eh.size}, {table.occ.shape[0]} x "
+            f"{table.occ.shape[1]})", run, "witness_gc_kernel")
 
     # K11: fig_fastpath's sequential baseline at its largest batch, staged
     # in shared memory at the paper's 1024 x 4 (its row in the kernels'
@@ -1741,10 +1855,20 @@ def phase_txn_times(np, torch, card, device, shapes):
                  f"memory, " + ("not measured" if "chain_shared_ms" not in t
                                 else f"{t['chain_shared_ms']:.4f} ms")
                  + " in shared memory")
+        yard = ("" if "yardstick_ms" not in t else
+                f"; yardstick torch.isin + masked_fill_ "
+                f"({len(t['yardstick_kernels'])} kernels a call) "
+                f"{t['yardstick_ms']:.4f} ms (CUDA events), device "
+                + ("not measured" if t["yardstick_device_ms"] is None
+                   else f"{t['yardstick_device_ms']:.4f} ms"))
+        verdict = ("" if "accepted" not in t else
+                   f"; {t['path']} path, "
+                   + ("accepts" if t["accepted"] else "rejects"))
         say(card, f"time {name}: {t['ms']:.4f} ms per call (CUDA events), "
                   f"device time {dms} (profiler), plain "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.3e} ms "
-                  f"({t['bound'][1]}, {t['bytes']} B, {t['ops']} ops){chain}; "
+                  f"({t['bound'][1]}, {t['bytes']} B, {t['ops']} ops)"
+                  f"{chain}{yard}{verdict}; "
                   f"library none (no single PyTorch call computes it)")
     return out
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's K5 (gang_record_groups) and K11 (witness_record_seq)
-kernels of one checkout on the card, at the shapes that compare two trees.
+"""Time the port's K5 (gang_record_groups), K9 (txn_probe), K10
+(witness_gc) and K11 (witness_record_seq) kernels of one checkout on the
+card, at the shapes that compare two trees.
 
     python3 scripts/torch_kernel_times.py [--src DIR]
 
@@ -11,8 +12,16 @@ same card, in turns.  Each tree builds its own kernels.
 
 Shapes: K5 at G = K = 1 (a lone op, padded by ``groups_operands`` to 4 x 2)
 and at G = 64 groups of up to K = 4 keys, on a 256-lane x 1024-set x 4-way
-gang about half full; K11 with 4096 queries into an empty 1024 x 4 table
-and an empty 4096 x 8 table.  Each call starts from the same state.  For
+gang about half full; K9 at its path shape (the last of 60 probes of 1 to
+5 keys drawn from 4 x 4 raw lanes on a 64 x 4 table, padded to 16, one
+warp), at 16 fresh keys on a 1024 x 4 table about 90% full, and at 1024
+fresh keys in the 1024 distinct sets of a 1024 x 4 table with a free way
+in each (it accepts); K10 on the table of the gc chain (4096 random lanes
+recorded into an empty 1024 x 4 table) with one sync batch (G = 50) and
+the chain's batch (half the accepted lanes, about 1645) of its keys, and
+with 4096 entries of ``parity.gc_entries``' mix; K11 with 4096 queries
+into an empty 1024 x 4 table and an empty 4096 x 8 table.  Each call
+starts from the same state.  For
 each: "ms", CUDA events around the wrapper's launch (mean of 50), and
 "device_ms", the kernel's device time per launch in a torch.profiler trace
 of 20 calls.  Prints one JSON object per shape and the card's name and
@@ -110,6 +119,61 @@ def main() -> int:
                lambda args=args: ops.gang_groups_cuda(gang, S, *args,
                                                       counters),
                restore_gang)
+
+    def table_restorer(table0):
+        table = table0.clone()
+
+        def restore():
+            for p, p0 in zip(table, table0):
+                p.copy_(p0)
+        return table, restore
+
+    r = np.random.default_rng(7)
+    probe_table = ref.WitnessTable.empty(64, 4, device=dev)
+    for i in range(60):           # the last probe is the one timed
+        n = int(r.integers(1, 6))
+        hi, lo = (r.integers(0, 4, n).astype(np.uint32) for _ in range(2))
+        if i < 59:
+            ops.txn_probe(probe_table, hi, lo)
+    S, W = 1024, 4
+    pool = parity.key_pool(rng, 2 * S * W, S)
+    fresh = parity.key_pool(rng, 32 * S, S)
+    full = ref.witness_table_from_numpy(
+        parity.table_planes(rng, pool, S, W, fill=2.0), dev)
+    k16 = rng.choice(len(fresh.hi), 16, replace=False)
+    roomy = parity.table_planes(rng, pool, S, W, fill=0.75)
+    busy = np.flatnonzero((roomy[2] > 0).all(1))
+    roomy[2][busy, rng.integers(0, W, busy.size)] = 0
+    k1024 = np.array([fresh.by_set[x][0] for x in rng.permutation(S)])
+    for shape, table0, keys in (
+            ("path,64x4", probe_table, (hi, lo)),
+            ("K=16,1024x4,full", full, (fresh.hi[k16], fresh.lo[k16])),
+            ("K=1024,1024x4", ref.witness_table_from_numpy(roomy, dev),
+             (fresh.hi[k1024], fresh.lo[k1024]))):
+        table, restore = table_restorer(table0)
+        args = ops.txn_probe_operands(table0, *keys)
+        report("txn_probe", shape,
+               lambda table=table, args=args: ops.txn_probe_cuda(table,
+                                                                 *args),
+               restore)
+
+    gc_table = ref.WitnessTable.empty(S, W, device=dev)
+    qh, ql = (r.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+              for _ in range(2))
+    acc, gc_table = ops.witness_record(gc_table, qh, ql)
+    ok = np.flatnonzero(acc == 1)
+    half = ok[: ok.size // 2]
+    more = parity.gc_entries(rng, ref.witness_table_to_numpy(gc_table), 4096)
+    for shape, g_hi, g_lo in (
+            ("G=50,1024x4", qh[half[:50]], ql[half[:50]]),
+            (f"G={half.size},1024x4", qh[half], ql[half]),
+            ("G=4096,1024x4", more["g_hi"], more["g_lo"])):
+        table, restore = table_restorer(gc_table)
+        args = ops.table_gc_operands(gc_table, g_hi, g_lo)
+        report("witness_gc", shape,
+               lambda table=table, args=args: ops.witness_gc_cuda(table,
+                                                                  *args),
+               restore)
 
     for s, w in ((1024, 4), (4096, 8)):
         table = ref.WitnessTable.empty(s, w, device=dev)

@@ -410,13 +410,16 @@ def conflict_scan_cuda(w_hi, w_lo, w_valid, q_hi, q_lo, q_cls):
 
 
 def txn_probe_cuda(table: WitnessTable, k_hi, k_lo, own, valid):
-    """K9 on the card; see ``ref.txn_probe_plain`` for the contract."""
+    """K9 on the card, one launch (also for K = 0, which accepts); see
+    ``ref.txn_probe_plain`` for the contract."""
     dev = k_hi.device
     _check_cuda(dev, *table, k_hi, k_lo, own, valid)
     K = k_hi.shape[0]
     if K > 1024:
         raise ValueError(f"txn_probe takes at most 1024 keys, got {K}")
     S, W = table.occ.shape
+    if W > 256:
+        raise ValueError(f"txn_probe takes at most 256 ways, got {W}")
     acc = torch.empty(1, dtype=torch.int32, device=dev)
     hit, qh, ql = (torch.empty_like(k_hi) for _ in range(3))
     TXN_PROBE.call("txn_probe_launch", K, _ptr(k_hi), _ptr(k_lo), _ptr(own),

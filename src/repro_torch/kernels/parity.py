@@ -1295,19 +1295,223 @@ def gc_codes(planes, g_hi, g_lo) -> List[int]:
                                   - np.unique(keys, axis=0).shape[0])
 
 
-def check_txn_kernels(probe_planes, probes, gcs, seqs,
-                      device="cuda") -> List[Parity]:
-    """Run K9, K10 and K11 and their plain versions on the same device
-    tensors (tables on identical copies); compare every output and all
-    three table planes.
+TXN_CORNERS = ("1024_keys_distinct_sets", "64_keys_one_set", "all_own",
+               "repeated_key", "padding_only", "1_way", "64_ways",
+               "all_ones_key", "wide_same_sets")
 
-    ``probes`` (:func:`txn_chain`) run as one chain from ``probe_planes``,
-    the kernel's table and the plain version's in lockstep; a probe the
-    kernel rejects must leave its table bit-identical, which counts as part
-    of the error.  ``gcs`` are (planes, entries) cases of ``witness_gc``,
-    ``seqs`` (planes, queries) cases of ``witness_record_seq``."""
-    device = torch.device(device)
-    ta = ref.witness_table_from_numpy(probe_planes, device)
+
+def _op(hi, lo, coin) -> Dict[str, np.ndarray]:
+    """One :func:`txn_chain` op of RAW keys, every key's own coin set to
+    ``coin`` (a scalar or one per key)."""
+    hi, lo = np.asarray(hi, np.uint32), np.asarray(lo, np.uint32)
+    return dict(key_hi=hi, key_lo=lo,
+                own_coin=np.broadcast_to(np.asarray(coin, np.int32),
+                                         hi.shape).copy())
+
+
+def _held_raw(pool: KeyPool, planes, rng: np.random.Generator,
+              n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The RAW lanes of ``n`` distinct pool keys the table holds."""
+    khi, klo, occ = planes
+    index = {(int(h), int(lo)): k for k, (h, lo) in
+             enumerate(zip(pool.q_hi, pool.q_lo))}
+    held_k = np.array([index[(int(khi[s, w]), int(klo[s, w]))]
+                       for s, w in np.argwhere(occ > 0)])
+    k = rng.choice(held_k, n, replace=False)
+    return pool.hi[k], pool.lo[k]
+
+
+def txn_corners(rng: np.random.Generator):
+    """``txn_probe`` chains at the corners of K9's design, in the order of
+    ``TXN_CORNERS``: each a dict of ``planes`` and ``probes`` (ops of RAW
+    keys with own coins, :func:`txn_chain`'s form; the check marks a key
+    own where its coin is set and the key is held).  1024 fresh keys in
+    the 1024 distinct sets of a 1024 x 4 table with a free way in every set
+    (the block path at its widest: accept), then their retry with every
+    key own (an own pass) and without (a conflict at K = 1024, the table
+    unchanged); 64 fresh keys in one set of 64 x 4 (FULL, the table
+    unchanged), then as many keys of that set as it has free ways spread
+    over an op of 64 keys of distinct sets (the rank across warps, an exact
+    fit); 16 and 40 held keys, every key own (an own pass that writes
+    nothing, on one warp and on a block); a key repeated in an op, fresh
+    (both copies claim, two ways), held and own (two passes), held and not
+    own (a conflict), and a fresh key repeated across warps of a 48-key op;
+    an op of padding only; :func:`txn_chain`s of up to 40 keys on 256 x 1
+    and 16 x 64, after 40 and then 12 fresh keys in free sets of 256 x 1
+    (a block and a warp that write) and after 64 keys of one set of 16 x
+    64 (FULL) and as many as its free ways (an exact fit); the raw all-ones
+    key beside the raw zero key and keys all ones in one lane, in sets
+    emptied for them, then retried own and not;
+    and ops of 40 to 300 fresh keys over a 64 x 8 table, many in a set and
+    across warps."""
+    out = []
+
+    def case(planes, probes):
+        out.append(dict(planes=planes, probes=probes))
+
+    def fresh_in(fresh: KeyPool, sets, n=1):
+        k = np.concatenate([fresh.by_set[int(x)][:n] for x in sets])
+        return fresh.hi[k], fresh.lo[k]
+
+    S, W = 1024, 4
+    pool = key_pool(rng, 2 * S * W, S)
+    planes = table_planes(rng, pool, S, W, fill=0.75)
+    full = np.flatnonzero((planes[2] > 0).all(1))
+    planes[2][full, rng.integers(0, W, full.size)] = 0
+    fresh = key_pool(rng, 32 * S, S)
+    hi, lo = fresh_in(fresh, rng.permutation(S))
+    case(planes, [_op(hi, lo, 0), _op(hi, lo, 1), _op(hi, lo, 0)])
+
+    S, W = 64, 4
+    pool = key_pool(rng, 2 * S * W, S)
+    planes = table_planes(rng, pool, S, W)
+    fresh = key_pool(rng, 256 * S, S)
+    s = int(rng.integers(0, S))
+    hi, lo = fresh_in(fresh, [s], 64)
+    n_free = int((planes[2][s] == 0).sum())
+    roomy = [x for x in np.flatnonzero((planes[2] == 0).any(1)) if x != s]
+    ohi, olo = fresh_in(fresh, rng.permutation(roomy)[:64 - n_free])
+    mix = rng.permutation(ohi.size + n_free)
+    fit_hi = np.concatenate([ohi, hi[:n_free]])[mix]
+    fit_lo = np.concatenate([olo, lo[:n_free]])[mix]
+    case(planes, [_op(hi, lo, 0), _op(fit_hi, fit_lo, 0)])
+
+    pool = key_pool(rng, 2 * S * W, S)
+    planes = table_planes(rng, pool, S, W, fill=1.0)
+    case(planes, [_op(*_held_raw(pool, planes, rng, n), 1) for n in (16, 40)])
+
+    S = 256
+    pool = key_pool(rng, 2 * S * W, S)
+    planes = table_planes(rng, pool, S, W)
+    fresh = key_pool(rng, 64 * S, S)
+    two = rng.permutation(np.flatnonzero((planes[2] == 0).sum(1) >= 2))
+    (xh, yh), (xl, yl) = fresh_in(fresh, two[:2])
+    (hh, zh), (hl, zl) = _held_raw(pool, planes, rng, 2)
+    wide_h, wide_l = fresh_in(fresh, two[2:49])
+    wide_h[40], wide_l[40] = wide_h[3], wide_l[3]
+    case(planes, [_op([xh, yh, xh], [xl, yl, xl], 0),
+                  _op([hh, hh, zh], [hl, hl, zl], 1),
+                  _op([hh, yh, hh], [hl, yl, hl], 0),
+                  _op(wide_h[:48], wide_l[:48], 0)])
+
+    pool = key_pool(rng, 2 * 64 * 4, 64)
+    empty = np.zeros(0, np.uint32)
+    case(table_planes(rng, pool, 64, 4), [_op(empty, empty, 0)])
+
+    for S, W in ((256, 1), (16, 64)):
+        pool = key_pool(rng, 2 * S * W, S)
+        planes = table_planes(rng, pool, S, W)
+        fresh = key_pool(rng, 128 * S, S)
+        if W == 1:
+            free = rng.permutation(np.flatnonzero(planes[2][:, 0] == 0))
+            fits = [fresh_in(fresh, free[:40]), fresh_in(fresh, free[40:52])]
+        else:
+            s = int(rng.integers(0, S))
+            hi, lo = fresh_in(fresh, [s], 64)
+            n_free = int((planes[2][s] == 0).sum())
+            fits = [(hi, lo), (hi[:n_free], lo[:n_free])]
+        case(planes, [_op(hi, lo, 0) for hi, lo in fits] + txn_chain(
+            rng, pool, planes, 60, max_keys=40, own_frac=0.3, dup_frac=0.2,
+            same_set_frac=0.2))
+
+    S, W = 64, 4
+    pool = key_pool(rng, 2 * S * W, S)
+    planes = table_planes(rng, pool, S, W)
+    hi = np.array([ALL_ONES, 0, ALL_ONES, 0], np.uint32)
+    lo = np.array([ALL_ONES, 0, 0, ALL_ONES], np.uint32)
+    sets = ref.np_keyhash2x32(hi, lo)[1] & np.uint32(S - 1)
+    planes[2][sets] = 0                      # room for all four
+    case(planes, [_op(hi, lo, 0), _op(hi, lo, 1), _op(hi, lo, 0)])
+
+    S, W = 64, 8
+    pool = key_pool(rng, 2 * S * W, S)
+    planes = table_planes(rng, pool, S, W, fill=0.3)
+    fresh = key_pool(rng, 4096, S)
+    probes = []
+    for n in (200, 120, 60, 300, 40, 100):
+        k = rng.choice(len(fresh.hi), n, replace=False)
+        probes.append(_op(fresh.hi[k], fresh.lo[k], 0))
+    probes.append(dict(probes[0], own_coin=np.ones(200, np.int32)))
+    case(planes, probes)
+    return out
+
+
+TABLE_GC_CORNERS = ("no_entries", "one_entry", "4096_entries",
+                    "one_key_repeated", "all_ones_key", "zero_key",
+                    "keys_outside_their_set", "4096x1", "64x64", "512x3")
+
+
+def table_gc_corners(rng: np.random.Generator):
+    """(planes, entries) cases of ``witness_gc`` at the corners of K10's
+    join, in the order of ``TABLE_GC_CORNERS``, on :func:`gc_planes`'
+    tables (64 x 4 unless named) with :func:`gc_entries`: no entries; one
+    held key; 4096 entries on 1024 x 4 (four staged tables); 300 copies of
+    one held key; the mixed all-ones key (the staged table's empty marker)
+    held in one slot and left in a cleared one, given twice among 50
+    entries beside keys all ones in one lane (one held, one not); zero entries against slots
+    left zero (unoccupied, and one at occ -1 that must stay so) and one
+    held slot of key zero; a table whose slots were shuffled across sets
+    (the contract reads no set index); and 300 entries on 4096 x 1, 64 x
+    64 and 512 x 3 (S x W not a multiple of the block's 1024 slots)."""
+    out = []
+
+    def planes_of(S, W):
+        return gc_planes(rng, key_pool(rng, 2 * S * W, S), S, W)
+
+    planes = planes_of(64, 4)
+    out.append((planes, gc_entries(rng, planes, 0)))
+    planes = planes_of(64, 4)
+    s, w = np.argwhere(planes[2] > 0)[0]
+    out.append((planes, dict(g_hi=planes[0][s, w:w + 1].copy(),
+                             g_lo=planes[1][s, w:w + 1].copy())))
+    planes = planes_of(1024, 4)
+    out.append((planes, gc_entries(rng, planes, 4096)))
+    planes = planes_of(64, 4)
+    s, w = np.argwhere(planes[2] > 0)[1]
+    out.append((planes, dict(g_hi=np.full(300, planes[0][s, w]),
+                             g_lo=np.full(300, planes[1][s, w]))))
+
+    planes = planes_of(64, 4)
+    (s1, w1), (s2, w2), (s3, w3) = np.argwhere(planes[2] > 0)[:3]
+    planes[0][s1, w1] = planes[1][s1, w1] = ALL_ONES
+    planes[0][s2, w2] = planes[1][s2, w2] = ALL_ONES
+    planes[2][s2, w2] = 0
+    planes[0][s3, w3], planes[1][s3, w3] = ALL_ONES, np.uint32(0)
+    g = gc_entries(rng, planes, 50)
+    g["g_hi"][[5, 30, 31, 32]] = (ALL_ONES, ALL_ONES, ALL_ONES, 0)
+    g["g_lo"][[5, 30, 31, 32]] = (ALL_ONES, ALL_ONES, 0, ALL_ONES)
+    out.append((planes, g))
+
+    planes = planes_of(64, 4)
+    zero = np.flatnonzero((planes[2].reshape(-1) == 0)
+                          & (planes[0].reshape(-1) == 0)
+                          & (planes[1].reshape(-1) == 0))
+    held = np.flatnonzero(planes[2].reshape(-1) > 0)
+    for p in planes[:2]:
+        p.reshape(-1)[held[0]] = 0
+    planes[2].reshape(-1)[zero[0]] = -1
+    g = gc_entries(rng, planes, 20)
+    for lane in ("g_hi", "g_lo"):
+        g[lane][[0, 7, 19]] = 0
+    out.append((planes, g))
+
+    planes = planes_of(64, 4)
+    order = rng.permutation(planes[2].size)
+    planes = tuple(p.reshape(-1)[order].reshape(p.shape) for p in planes)
+    out.append((planes, gc_entries(rng, planes, 64)))
+
+    for S, W in ((4096, 1), (64, 64), (512, 3)):
+        planes = planes_of(S, W)
+        out.append((planes, gc_entries(rng, planes, 300)))
+    return out
+
+
+def _probe_chain(planes, probes, device: torch.device):
+    """One :func:`txn_chain` of probes from ``planes`` through K9 and its
+    plain version, their tables in lockstep; returns (max_abs_err, outputs,
+    coverage codes).  A probe the kernel rejects must leave its table
+    bit-identical, which counts as part of the error."""
+    ta = ref.witness_table_from_numpy(planes, device)
     tb = ta.clone()
     S = ta.occ.shape[0]
     pairs, kept, steps = [], torch.zeros((), dtype=torch.int64,
@@ -1331,11 +1535,30 @@ def check_txn_kernels(probe_planes, probes, gcs, seqs,
                                                 for t in step)
         codes += txn_codes(bool(acc[0]), hit, own, valid, ql.view(np.uint32),
                            k_hi, k_lo, S)
-    out = [Parity("txn_probe", max(err, int(kept)), n,
-                  reason_coverage(np.array(codes, int), N_CODES))]
+    return max(err, int(kept)), n, reason_coverage(np.array(codes, int),
+                                                   N_CODES)
+
+
+def check_txn_kernels(probe_planes, probes, gcs, seqs, device="cuda",
+                      probe_corners=(), gc_corners=()) -> List[Parity]:
+    """Run K9, K10 and K11 and their plain versions on the same device
+    tensors (tables on identical copies); compare every output and all
+    three table planes.
+
+    ``probes`` (:func:`txn_chain`) run as one chain from ``probe_planes``
+    (:func:`_probe_chain`), and so does each case of ``probe_corners``
+    (:func:`txn_corners`) from its own planes.  ``gcs`` and ``gc_corners``
+    (:func:`table_gc_corners`) are (planes, entries) cases of
+    ``witness_gc``, ``seqs`` (planes, queries) cases of
+    ``witness_record_seq``."""
+    device = torch.device(device)
+    parts = [_probe_chain(probe_planes, probes, device)]
+    parts += [_probe_chain(c["planes"], c["probes"], device)
+              for c in probe_corners]
+    out = [_merge("txn_probe", parts)]
 
     parts = []
-    for planes, g in gcs:
+    for planes, g in list(gcs) + list(gc_corners):
         base = ref.witness_table_from_numpy(planes, device)
         args = ops.table_gc_operands(base, **g)
         ta, tb = base.clone(), base.clone()
@@ -1364,7 +1587,8 @@ __all__ = ["ALL_ONES", "BRANCHES", "CLASSES", "GANG_RECORD_CORNERS",
            "GROUP_SAME_WAY", "GC_MISS", "GC_REPEAT",
            "GC_STALE", "KeyPool", "N_CODES", "Parity", "SCAN_COMMUTES",
            "SCAN_CORNERS", "SCAN_HIT", "TABLE_RECORD_CORNERS", "TXN_DUP_KEY",
-           "TXN_OWN_PASS", "TXN_PADDED", "TXN_SAME_SET", "check_kernels",
+           "TABLE_GC_CORNERS", "TXN_CORNERS", "TXN_OWN_PASS", "TXN_PADDED",
+           "TXN_SAME_SET", "check_kernels",
            "check_table_kernels", "check_txn_kernels", "cls_of_rpc",
            "copies_operands", "fastpath_batch", "fastpath_corners",
            "gang_groups_corners", "gang_planes", "gang_record_corners",
@@ -1373,4 +1597,5 @@ __all__ = ["ALL_ONES", "BRANCHES", "CLASSES", "GANG_RECORD_CORNERS",
            "key_pool", "launches_per_call", "reason_coverage", "record_batch",
            "scan_batch", "scan_codes", "scan_corners", "table_batch",
            "table_fastpath_batch", "table_fastpath_corners", "table_planes",
-           "table_record_corners", "trace", "txn_chain", "txn_codes", "window"]
+           "table_gc_corners", "table_record_corners", "trace", "txn_chain",
+           "txn_codes", "txn_corners", "window"]

@@ -118,10 +118,11 @@ def test_table_kernel_matches_plain_version(cuda, table_case, kernel):
 
 def test_redesigned_kernels_launch_once_per_call(cuda, case, table_case):
     """fastpath_record_scan, witness_record, gang_gc, conflict_scan,
-    gang_record, gang_record_groups and witness_record_seq (staged and
-    walking global memory) each launch only their own kernel (no sort, no
-    prep, no fill); gang_fastpath launches its own kernel and
-    gang_record's, and no other."""
+    gang_record, gang_record_groups, txn_probe (one warp, and a block at
+    K = 1024 and at 64 ways), witness_gc (G of 50, 1645 and 4096) and
+    witness_record_seq (staged and walking global memory) each launch only
+    their own kernel (no sort, no prep, no fill); gang_fastpath launches
+    its own kernel and gang_record's, and no other."""
     from repro_torch.kernels import ops, ref
 
     def only(fn, *kernels):
@@ -153,6 +154,21 @@ def test_redesigned_kernels_launch_once_per_call(cuda, case, table_case):
         only(lambda: ops.gang_groups_cuda(gang, S, *args),
              "gang_groups_kernel")
     rng = np.random.default_rng(5)
+    for K, W_, path in ((5, 4, "<true>"), (1024, 4, "<false>"),
+                        (16, 64, "<false>")):
+        table = ref.WitnessTable.empty(1024, W_, device=cuda)
+        lanes = rng.integers(0, 2**32, (2, K), dtype=np.uint64)
+        args = ops.txn_probe_operands(table, *lanes.astype(np.uint32))
+        only(lambda: ops.txn_probe_cuda(table, *args), "txn_probe_kernel")
+        (name,) = parity.launches_per_call(
+            lambda: ops.txn_probe_cuda(table, *args))
+        assert path in name or "<" not in name, name
+    for g in (50, 1645, 4096):
+        table = ref.WitnessTable.empty(1024, 4, device=cuda)
+        lanes = rng.integers(0, 2**32, (2, 4096), dtype=np.uint64)
+        ops.witness_record(table, *lanes.astype(np.uint32))
+        args = ops.table_gc_operands(table, *lanes[:, :g].astype(np.uint32))
+        only(lambda: ops.witness_gc_cuda(table, *args), "witness_gc_kernel")
     for s_, w_, staged in ((1024, 4, True), (4096, 8, False)):
         table = ref.WitnessTable.empty(s_, w_, device=cuda)
         assert ops.witness_record_seq_staged(table) == staged
@@ -219,10 +235,17 @@ def txn_case(request):
     empty and a pre-filled table, at 16x40 (ways in two chunks), at 32x128
     (four chunks, a staged block of 512 threads), at 2048x4 (98,304 B
     staged in shared memory, over the 48 KB a block has without opting
-    in) and at 4096x8 (393,216 B: global memory)."""
+    in) and at 4096x8 (393,216 B: global memory).  K9's corners
+    (``parity.txn_corners``: 1024 keys in distinct sets, 64 in one set,
+    every key own, repeated keys, padding only, 1 and 64 ways, the all-ones
+    raw key, wide ops) and K10's (``parity.table_gc_corners``: no entries,
+    one, 4096, one key repeated, the mixed all-ones key, zero keys, keys
+    outside their set, 4096x1, 64x64, 512x3) come with them."""
     rng = np.random.default_rng(request.param)
     pool = parity.key_pool(rng, 512, 64)
     planes = parity.table_planes(rng, pool, 64, 4, fill=1.5)
+    corners = dict(probe_corners=parity.txn_corners(rng),
+                   gc_corners=parity.table_gc_corners(rng))
     probes = parity.txn_chain(rng, pool, planes, 300, max_keys=6,
                               own_frac=0.3, dup_frac=0.2)
     gcs = []
@@ -235,13 +258,14 @@ def txn_case(request):
         p = parity.key_pool(rng, 4 * S * W, S)
         seqs.append((parity.table_planes(rng, p, S, W, fill=fill),
                      parity.table_batch(rng, p, 1000, W)))
-    return planes, probes, gcs, seqs
+    return (planes, probes, gcs, seqs), corners
 
 
 @pytest.mark.parametrize("kernel", ["txn_probe", "witness_gc",
                                     "witness_record_seq"])
 def test_txn_kernel_matches_plain_version(cuda, txn_case, kernel):
-    results = parity.check_txn_kernels(*txn_case, device=cuda)
+    results = parity.check_txn_kernels(*txn_case[0], device=cuda,
+                                       **txn_case[1])
     torch.cuda.synchronize()
     got = {r.name: r for r in results}[kernel]
     assert got.outputs > 0

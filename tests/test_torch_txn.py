@@ -8,7 +8,10 @@ K9 (``txn_probe``, on K1's mix), K10 (``witness_gc``) and K11
 K9 and K11 against the ``repro.kernels.ref`` oracles (their Pallas bodies
 need a Pallas with ``pl.load``).  The same seeded numpy inputs go to both
 sides; equality is exact.  Shapes: 16x2, 64x4 and 256x1 tables, probes of
-at most 16 keys, gc batches of at most 64 entries, 4-shard clusters.
+at most 16 keys, gc batches of at most 64 entries, 4-shard clusters; and
+the corners of K9 and K10 (``parity.txn_corners``, up to 1024 keys an op
+on up to 1024x4 and 16x64; ``parity.table_gc_corners``, up to 4096
+entries on up to 4096 slots).
 """
 import jax
 import jax.numpy as jnp
@@ -34,6 +37,7 @@ from repro_torch.core.types import Op, OpType
 from repro_torch.kernels import (
     WitnessTable,
     dispatch_count,
+    ops,
     parity,
     ref,
     reset_dispatch_count,
@@ -179,6 +183,54 @@ def test_txn_probe_is_one_dispatch_on_accept_and_reject():
     assert dispatch_count() == 2
 
 
+@pytest.fixture(scope="module")
+def txn_corners():
+    return parity.txn_corners(np.random.default_rng(11))
+
+
+@pytest.mark.parametrize("corner", range(len(parity.TXN_CORNERS)),
+                         ids=parity.TXN_CORNERS)
+def test_txn_probe_corner_matches_ref(txn_corners, corner):
+    """K9's corners (``parity.txn_corners``): 1024 keys in distinct sets,
+    64 keys in one set, every key own, a key repeated with and without
+    own, padding only, 1 and 64 ways, the all-ones raw key and wide ops
+    with many keys a set.  Each chain through the port's op (the plain
+    version here) equals ``ref_witness_record_txn`` op for op: accept, hit,
+    the mixed lanes and all three planes."""
+    c = txn_corners[corner]
+    table = witness_table_from_numpy(c["planes"], "cpu")
+    oracle = _jax_table(c["planes"])
+    for p in c["probes"]:
+        own = _own(table, p)
+        res = txn_probe(table, p["key_hi"], p["key_lo"], own)
+        acc, hit, qh, ql, oracle = _oracle_probe(oracle, p["key_hi"],
+                                                 p["key_lo"], own)
+        assert res.accepted == acc
+        np.testing.assert_array_equal(res.hit, hit)
+        np.testing.assert_array_equal(res.q_hi, qh)
+        np.testing.assert_array_equal(res.q_lo, ql)
+        _tables_equal(res.table, oracle)
+
+
+def test_txn_probe_corners_reach_every_outcome(txn_corners):
+    """The corners alone reach every outcome K9's check counts."""
+    codes = []
+    for c in txn_corners:
+        table = witness_table_from_numpy(c["planes"], "cpu")
+        for p in c["probes"]:
+            own = _own(table, p)
+            res = txn_probe(table, p["key_hi"], p["key_lo"], own)
+            K = len(own)
+            codes += parity.txn_codes(res.accepted, res.hit, own,
+                                      np.ones(K, np.int32), res.q_lo,
+                                      p["key_hi"], p["key_lo"],
+                                      table.occ.shape[0])
+            if ops._bucket(K) > K:
+                codes.append(parity.TXN_PADDED)
+    cov = parity.reason_coverage(np.array(codes), parity.N_CODES)
+    assert all(cov[c] > 0 for c in parity.BRANCHES["txn_probe"]), cov
+
+
 # ---------------------------------------------------------------------------
 # K10: witness_gc
 # ---------------------------------------------------------------------------
@@ -232,6 +284,39 @@ def test_witness_gc_clears_occ_only_and_ignores_cleared_slots():
     witness_gc(table, [], [])
     assert dispatch_count() == 2
     assert all(torch.equal(a, b) for a, b in zip(before, table))
+
+
+@pytest.fixture(scope="module")
+def gc_corners():
+    return parity.table_gc_corners(np.random.default_rng(12))
+
+
+@pytest.mark.parametrize("corner", range(len(parity.TABLE_GC_CORNERS)),
+                         ids=parity.TABLE_GC_CORNERS)
+def test_witness_gc_corner_matches_pallas_and_ref(gc_corners, corner):
+    """K10's corners (``parity.table_gc_corners``): no entries, one entry,
+    4096 entries, one key repeated, the mixed all-ones key, zero entries
+    against slots left zero, keys outside their set, and 4096 x 1, 64 x 64
+    and 512 x 3.  The table after the port's gc (the plain version here)
+    equals ``ref_witness_gc``'s and, for G > 0, the Pallas kernel's
+    (interpret mode)."""
+    planes, g = gc_corners[corner]
+    table = witness_gc(witness_table_from_numpy(planes, "cpu"), g["g_hi"],
+                       g["g_lo"])
+    _tables_equal(table, ref_witness_gc(_jax_table(planes),
+                                        jnp.asarray(g["g_hi"]),
+                                        jnp.asarray(g["g_lo"])))
+    if len(g["g_hi"]):
+        _tables_equal(table, jops.witness_gc(_jax_table(planes), g["g_hi"],
+                                             g["g_lo"]))
+
+
+def test_witness_gc_corners_reach_every_outcome(gc_corners):
+    codes = []
+    for planes, g in gc_corners:
+        codes += parity.gc_codes(planes, g["g_hi"], g["g_lo"])
+    cov = parity.reason_coverage(np.array(codes), parity.N_CODES)
+    assert all(cov[c] > 0 for c in parity.BRANCHES["witness_gc"]), cov
 
 
 # ---------------------------------------------------------------------------
