@@ -157,6 +157,35 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    launch's device time apart from that stage.  Device times count each
    kernel per launch the trace caught.
 
+7. Serving (run last; launches counted from 0 over this phase alone):
+   ``repro_torch.serving.CurpServeDriver`` on the card at the published
+   widths of llama3.2-1b (16 layers, d 2048, 32/8 heads, d_ff 8192, vocab
+   128,256, 1.24 B parameters) and hymba-1.5b (32 layers, SWA with three
+   global layers, an SSM beside attention in every layer), bf16 weights
+   drawn from a seeded ``torch.Generator``, under ``ServeConfig(
+   max_batch=8, max_seq=256, f=3, sync_batch=50, n_shards=4,
+   witness_backend="device")``: 8 sessions with prompts of 16-48 tokens,
+   then 32 generated tokens, every step's commits through the fused gang
+   batch (K3 with K2) and its syncs' gc (K4).  For each model: a second
+   driver crashes the store after 16 tokens, recovers all 8 sessions and
+   generates the same tokens; every acknowledged session reads back equal
+   to the driver's tokens; at most one slow commit a session.  For
+   llama3.2-1b also the Python witness backend (tokens and fast/slow
+   commits identical, a difference in counts only beside a FULL reject,
+   which it names), each step as one mini-transaction
+   (``atomic_step_commit``, through K5: tokens identical, single-shard
+   steps on 1 RTT), and the served weights' f32 twin on the card (TF32
+   off) and on the CPU over 8 teacher-forced steps of all 8 rows: logits
+   within ``BF16_LOGIT_TOL`` (bf16) and ``F32_LOGIT_TOL`` (f32) of the
+   CPU's, greedy tokens equal wherever the CPU's top-2 margin exceeds the
+   tolerance.  The store calls of the main run and of the atomic run are
+   replayed on the device backend on the CPU (the gang kernels' plain
+   versions): commit counts, the six gang planes and the reason counters
+   bit for bit.  Reports the decode step's p50 and p99 (CUDA events),
+   tokens/s at batch 8, the host ms of each step's commit, the gang
+   kernels' launches per step, the device's idle share over one profiled
+   step and the host's self time by operator over another.
+
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``;
 the line before them names the card and its power limit.  Details also go
 to ``chiprun_out/chip_smoke.json``.
@@ -197,6 +226,20 @@ SEQ_BATCHES = (64, 512, 4096)
 SEQ_TABLES = ((4096, 4), (64, 64), (4096, 8))
 SEQ_GLOBAL = (4096, 8)
 CRASH_TXNS, STREAM_TXNS, STREAM_ITEMS = 64, 1000, 100_000
+# Serving (phase 7): CurpServeDriver at the published widths, its sessions
+# on 4 shards of the device witness gang; prompts of 16-48 tokens, then 32
+# generated; a second driver crashes after 16.  Logit tolerances against
+# f32 on the CPU (8 teacher-forced steps x 8 rows, logits of scale 1-5):
+# bf16 rounds at 2^-9 relative and about 100 roundings reach the residual
+# over 16 layers, ~2% rms or ~0.02 on a logit, ~0.1 at the largest of 8.2 M,
+# plus the logits' own bf16 ulp (0.03 at 4): 0.25.  f32 sums of 2048-8192
+# terms in another order differ by ~1e-5: 1e-3, which TF32's 2^-11
+# rounding would break.
+SERVE_ARCHS = ("llama3.2-1b", "hymba-1.5b")
+SERVE_BATCH, SERVE_MAX_SEQ, SERVE_SHARDS = 8, 256, 4
+SERVE_PROMPT, SERVE_TOKENS, SERVE_CRASH_AT = (16, 48), 32, 16
+SERVE_NUMERIC_STEPS = 8
+BF16_LOGIT_TOL, F32_LOGIT_TOL = 0.25, 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -1948,6 +1991,409 @@ def _self_time_by_file(prof):
                          reverse=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: serving (CurpServeDriver on the model zoo, full width)
+# ---------------------------------------------------------------------------
+def serve_arch(name):
+    """The configuration phase 7 serves, at its published width."""
+    from repro_torch.configs import ARCHS
+
+    return ARCHS[name]
+
+
+def _serve_config(device, **kw):
+    from repro_torch.serving import ServeConfig
+
+    base = dict(max_batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ, f=F,
+                sync_batch=50, n_shards=SERVE_SHARDS,
+                witness_backend="device", device=device)
+    base.update(kw)
+    return ServeConfig(**base)
+
+
+def _prompts(np, vocab):
+    rng = np.random.default_rng(SEED + 7)
+    lo, hi = SERVE_PROMPT
+    return {f"sess{i}": rng.integers(
+        0, vocab, int(rng.integers(lo, hi + 1))).tolist()
+        for i in range(SERVE_BATCH)}
+
+
+class _ServeClock:
+    """While armed: CUDA events around each decode step of one driver, the
+    host clock around each commit (``commit_batch`` or ``txn``), and each
+    transaction's outcome.  Always: the store calls, as (call, [(session,
+    tokens, done)]), so that they can be replayed."""
+
+    def __init__(self, torch, driver):
+        self.torch, self.armed = torch, False
+        self.decode, self.commit_s, self.txns, self.log = [], [], [], []
+        decode, store = driver._decode, driver.store
+
+        def timed_decode(host):
+            if not self.armed:
+                return decode(host)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = decode(host)
+            b.record()
+            self.decode.append((a, b))
+            return out
+
+        def timed(fn, outcomes):
+            def call(states):
+                self.log.append((fn.__name__, [(x.session_id, list(x.tokens),
+                                                x.done) for x in states]))
+                if not self.armed:
+                    return fn(states)
+                t = time.perf_counter()
+                out = fn(states)
+                self.commit_s.append(time.perf_counter() - t)
+                if outcomes:
+                    self.txns.append(out)
+                return out
+            return call
+
+        driver._decode = timed_decode
+        store.commit_batch = timed(store.commit_batch, False)
+        store.txn = timed(store.txn, True)
+
+    def decode_ms(self):
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.decode]
+
+
+def _serve_run(torch, cfg, model, prompts, crash_at=None, **kw):
+    """One driver over the prompts: submit every session (its prompt fed
+    through decode), then SERVE_TOKENS steps, crashing the whole store and
+    recovering after ``crash_at`` steps if given.  Returns the driver, its
+    clock (armed over the steps), the launches of each kernel over the
+    steps, the steps' wall s and the recovery report."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving import CurpServeDriver
+
+    d = CurpServeDriver(cfg, _serve_config(model.device, **kw),
+                        params=model)
+    clock = _ServeClock(torch, d)
+    for sid, prompt in prompts.items():
+        d.submit(sid, prompt)
+    torch.cuda.synchronize()
+    before = kops.launch_counts()
+    clock.armed = True
+    t0 = time.perf_counter()
+    rep = None
+    if crash_at is None:
+        d.generate(SERVE_TOKENS)
+    else:
+        d.generate(crash_at)
+        rep = d.crash_and_recover()
+        d.generate(SERVE_TOKENS - crash_at)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    clock.armed = False
+    after = kops.launch_counts()
+    return d, clock, {k: after[k] - before[k] for k in after}, wall, rep
+
+
+def _tokens(d):
+    return {sid: list(s.tokens) for sid, s in d.sessions.items()}
+
+
+def _check_store(card, name, d, paths=True):
+    """Durability: every session the store acknowledged reads back equal
+    to the driver's tokens; with ``paths``, at most one slow commit a
+    session and every other one fast."""
+    for sid, s in d.sessions.items():
+        st = d.store.load(sid)
+        check(st is not None and st.tokens == s.tokens,
+              f"{name}: session {sid} reads back "
+              f"{None if st is None else len(st.tokens)} tokens, the driver "
+              f"holds {len(s.tokens)}")
+    n = SERVE_BATCH * (1 + SERVE_TOKENS)
+    fast, slow = d.store.fast_commits, d.store.slow_commits
+    check(fast + slow == n and (slow <= SERVE_BATCH or not paths),
+          f"{name}: {fast} fast and {slow} slow commits of {n} "
+          f"(at most {SERVE_BATCH} slow)")
+
+
+def _check_plain(card, name, d, log):
+    """The store's calls of a run replayed on the device backend on the
+    CPU, i.e. the gang kernels' plain versions: commit counts, per-shard
+    commits, the six gang planes and the reason counters must equal the
+    card's bit for bit (the kernels at the serving path's own shapes)."""
+    from repro_torch.serving import CurpSessionStore, SessionState
+
+    sc = d.serve
+    cpu = CurpSessionStore(f=sc.f, sync_batch=sc.sync_batch,
+                           n_shards=sc.n_shards, geometry=sc.witness_geometry,
+                           witness_backend="device", n_slots=sc.n_slots,
+                           device="cpu")
+    for call, states in log:
+        getattr(cpu, call)([SessionState(*x) for x in states])
+    for attr in ("fast_commits", "slow_commits"):
+        check(getattr(cpu, attr) == getattr(d.store, attr),
+              f"{name}: {attr} on the card {getattr(d.store, attr)}, on the "
+              f"plain versions {getattr(cpu, attr)}")
+    check(cpu.per_shard_commits() == d.store.per_shard_commits(),
+          f"{name}: per-shard commits differ from the plain versions'")
+    card_gang, cpu_gang = d.store.cluster.gang, cpu.cluster.gang
+    for plane, a, b in zip(card_gang.table._fields, card_gang.table,
+                           cpu_gang.table):
+        check(a.shape == b.shape and bool((a.cpu() == b).all()),
+              f"{name}: gang plane {plane} differs from the plain versions'")
+    check((card_gang.drain_counters() == cpu_gang.drain_counters()).all(),
+          f"{name}: reason counters differ from the plain versions'")
+    say(card, f"serving {name}: {len(log)} store calls replayed on the gang "
+              f"kernels' plain versions: commits, the six gang planes "
+              f"({tuple(card_gang.table.occ.shape)}) and the reason counters "
+              f"identical")
+
+
+def _pcts(np, xs):
+    return (float(np.percentile(xs, 50)), float(np.percentile(xs, 99)))
+
+
+def _serve_idle(np, torch, d):
+    """One more decode step (and its commit) under the profiler: device
+    busy time against the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        d.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    us = _device_us(prof)
+    busy = None if us is None else us / 1e3
+    return dict(wall_ms=wall_ms, busy_ms=busy,
+                idle_share=None if busy is None else 1.0 - busy / wall_ms)
+
+
+def _serve_host_ops(torch, d, top=8):
+    """One more step under the profiler's CPU activity: the host's self
+    time by operator, the largest first (the profiler inflates each op's
+    cost alike, so read the shares)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        d.step()
+        torch.cuda.synchronize()
+    ops = sorted(((e.self_cpu_time_total, e.count, e.key)
+                  for e in prof.key_averages()), reverse=True)
+    total = sum(t for t, _, _ in ops) or 1.0
+    return dict(total_ms=total / 1e3,
+                top=[(k, n, t / total) for t, n, k in ops[:top]])
+
+
+def _serve_numerics(np, torch, card, cfg, model):
+    """The served bf16 weights against their f32 twin on the card (TF32
+    off) and on the CPU: SERVE_NUMERIC_STEPS teacher-forced decode steps
+    of all SERVE_BATCH rows."""
+    from dataclasses import replace
+
+    from repro_torch.models import Transformer, decode_step, init_decode_cache
+
+    cfg32 = replace(cfg, dtype="float32")
+    m32 = Transformer(cfg32, device=model.device, seed=SEED)
+    check(all(torch.equal(a.to(torch.bfloat16), b) for a, b in
+              zip(m32.parameters(), model.parameters())),
+          "the bf16 model is not its f32 twin rounded")
+    t0 = time.perf_counter()
+    cpu = Transformer.from_state_dict(cfg32, m32.state_dict(), device="cpu")
+    rng = np.random.default_rng(SEED + 8)
+    toks = rng.integers(0, cfg.vocab, (SERVE_NUMERIC_STEPS, SERVE_BATCH, 1))
+    runs = {"bf16": (cfg, model), "f32": (cfg32, m32), "cpu": (cfg32, cpu)}
+    caches = {k: init_decode_cache(c, SERVE_BATCH, SERVE_MAX_SEQ,
+                                   device=m.device)
+              for k, (c, m) in runs.items()}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    err = {"bf16": 0.0, "f32": 0.0}
+    tol = {"bf16": BF16_LOGIT_TOL, "f32": F32_LOGIT_TOL}
+    judged = {"bf16": 0, "f32": 0}
+    scale = 0.0
+    try:
+        for t in range(SERVE_NUMERIC_STEPS):
+            logits = {}
+            for k, (c, m) in runs.items():
+                tok = torch.from_numpy(toks[t]).int().to(m.device)
+                logits[k], caches[k] = decode_step(c, m, {"tokens": tok},
+                                                   caches[k])
+            want = logits["cpu"]
+            scale = max(scale, float(want.abs().max()))
+            top2 = torch.topk(want, 2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            for k in err:
+                got = logits[k].cpu()
+                err[k] = max(err[k], float((got - want).abs().max()))
+                sure = margin > tol[k]
+                judged[k] += int(sure.sum())
+                check(torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure]),
+                      f"{k} greedy tokens differ from the CPU's where its "
+                      f"top-2 margin exceeds {tol[k]}")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    for k in err:
+        check(err[k] <= tol[k], f"{k} logits on the card differ from the "
+                                f"CPU's f32 by {err[k]:.6g} > {tol[k]}")
+    n = SERVE_NUMERIC_STEPS * SERVE_BATCH
+    say(card, f"serving {cfg.name} numerics: {SERVE_NUMERIC_STEPS} "
+              f"teacher-forced steps x {SERVE_BATCH} rows against f32 on the "
+              f"CPU (logits up to {scale:.4f}): bf16 max abs err "
+              f"{err['bf16']:.6g} (tol {BF16_LOGIT_TOL}), f32 with TF32 off "
+              f"{err['f32']:.6g} (tol {F32_LOGIT_TOL}); greedy tokens equal "
+              f"on {judged['bf16']} and {judged['f32']} of {n} rows whose "
+              f"CPU top-2 margin exceeds the tolerance "
+              f"({time.perf_counter() - t0:.1f} s)")
+    return dict(max_abs_err=err, judged_rows=judged, rows=n,
+                max_abs_logit=scale)
+
+
+def phase_serving(np, torch, card, device):
+    """CurpServeDriver on the card at full width (launches counted from 0
+    over this phase alone); returns the phase's launches and numbers."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import Transformer
+
+    kops.reset_launch_counts()
+    info = {}
+    for name in SERVE_ARCHS:
+        cfg = serve_arch(name)
+        t0 = time.perf_counter()
+        model = Transformer(cfg, device=device, seed=SEED)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        say(card, f"serving {name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+                  f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, "
+                  f"vocab {cfg.vocab:,}, {n_params:,} parameters in "
+                  f"{cfg.dtype} ({torch.cuda.memory_allocated() / 2**30:.2f} "
+                  f"GiB on the card), built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        prompts = _prompts(np, cfg.vocab)
+        a, clock, steps_launched, wall, _ = _serve_run(torch, cfg, model,
+                                                       prompts)
+        want = _tokens(a)
+        check(all(len(want[sid]) == len(p) + SERVE_TOKENS
+                  for sid, p in prompts.items()),
+              f"{name}: a session did not get {SERVE_TOKENS} tokens")
+        _check_store(card, name, a)
+        _check_plain(card, name, a, clock.log)
+        b, _, _, _, rep = _serve_run(torch, cfg, model, prompts,
+                                     crash_at=SERVE_CRASH_AT)
+        check(rep["recovered_sessions"] == SERVE_BATCH,
+              f"{name}: {rep['recovered_sessions']} sessions recovered of "
+              f"{SERVE_BATCH}")
+        check(_tokens(b) == want, f"{name}: the driver crashed after "
+                                  f"{SERVE_CRASH_AT} steps generated other "
+                                  f"tokens")
+        _check_store(card, f"{name} (crashed)", b, paths=False)
+        dec = clock.decode_ms()
+        p50, p99 = _pcts(np, dec)
+        commit_ms = [s * 1e3 for s in clock.commit_s]
+        c50, c99 = _pcts(np, commit_ms)
+        per_step = {k: steps_launched[k] / SERVE_TOKENS
+                    for k in ("gang_record", "gang_fastpath", "gang_gc",
+                              "gang_record_groups")}
+        row = dict(n_params=n_params, decode_ms=dec, decode_p50=p50,
+                   decode_p99=p99, commit_ms=commit_ms, commit_p50=c50,
+                   commit_p99=c99, tokens_per_s=SERVE_BATCH * SERVE_TOKENS
+                   / wall, launches_per_step=per_step,
+                   fast_slow=(a.store.fast_commits, a.store.slow_commits),
+                   crash=rep)
+        say(card, f"serving {name}: {SERVE_BATCH} sessions (prompts "
+                  f"{min(map(len, prompts.values()))}-"
+                  f"{max(map(len, prompts.values()))} tokens) x "
+                  f"{SERVE_TOKENS} tokens on 4 shards of the device witness "
+                  f"gang: decode step p50 {p50:.3f} ms, p99 {p99:.3f} ms "
+                  f"(CUDA events); {row['tokens_per_s']:.1f} tokens/s at "
+                  f"batch {SERVE_BATCH}; commit host ms per step p50 "
+                  f"{c50:.3f}, p99 {c99:.3f}; launches per step "
+                  + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
+                  + f"; commits fast {row['fast_slow'][0]}, slow "
+                    f"{row['fast_slow'][1]}; crash after {SERVE_CRASH_AT} "
+                    f"steps: {rep['recovered_sessions']} recovered, "
+                    f"{rep['replayed_ops']} replayed, tokens identical; "
+                    f"every session read back")
+        del b
+        if name == SERVE_ARCHS[0]:
+            row.update(_serve_other_paths(np, torch, card, cfg, model,
+                                          prompts, a, want))
+            row["numerics"] = _serve_numerics(np, torch, card, cfg, model)
+        row["idle"] = _serve_idle(np, torch, a)
+        idle = row["idle"]
+        say(card, f"serving {name}: one step under the profiler: wall "
+                  f"{idle['wall_ms']:.3f} ms, device busy "
+                  + ("not measured" if idle["busy_ms"] is None else
+                     f"{idle['busy_ms']:.3f} ms, idle share "
+                     f"{idle['idle_share']:.4f}"))
+        row["host_ops"] = _serve_host_ops(torch, a)
+        say(card, f"serving {name}: host self time of one step under the "
+                  f"profiler {row['host_ops']['total_ms']:.1f} ms, by op: "
+                  + ", ".join(f"{k} x{n} {sh:.3f}"
+                              for k, n, sh in row["host_ops"]["top"]))
+        info[name] = row
+        del a, model
+        torch.cuda.empty_cache()
+    launched = kops.launch_counts()
+    path = ("gang_record", "gang_fastpath", "gang_gc", "gang_record_groups")
+    check(all(launched[k] > 0 for k in path),
+          f"serving did not launch every gang kernel: {launched}")
+    say(card, "serving launches (phase 7 alone): "
+              + ", ".join(f"{k} {launched[k]}" for k in path))
+    return launched, info
+
+
+def _serve_other_paths(np, torch, card, cfg, model, prompts, a, want):
+    """The same run on the Python witness backend (tokens and commit counts
+    identical, unless a FULL reject explains a difference in counts) and
+    with each step one mini-transaction (tokens identical; every
+    single-shard step fast, every cross-shard one committed in 2 rounds or
+    more)."""
+    py, _, _, _, _ = _serve_run(torch, cfg, model, prompts,
+                                witness_backend="python")
+    check(_tokens(py) == want, "the Python witness backend generated "
+                               "other tokens")
+    counts = [(d.store.fast_commits, d.store.slow_commits) for d in (a, py)]
+    full = {sid: n for sid, n in enumerate(_full_by_shard(a.store.cluster))
+            if n}
+    if counts[0] != counts[1]:
+        check(full, f"fast/slow commits differ from the Python backend "
+                    f"({counts[0]} against {counts[1]}) with no FULL reject")
+        say(card, f"serving: fast/slow commits {counts[0]} against the "
+                  f"Python backend's {counts[1]}; FULL rejects by shard "
+                  f"{full}")
+    at, clock, launched, _, _ = _serve_run(torch, cfg, model, prompts,
+                                           atomic_step_commit=True)
+    check(_tokens(at) == want, "atomic step commits generated other tokens")
+    _check_plain(card, f"{cfg.name} (atomic step commits)", at, clock.log)
+    single = [o for o in clock.txns if o.n_shards == 1]
+    cross = [o for o in clock.txns if o.n_shards > 1]
+    check(all(o.status.name == "COMMITTED" for o in clock.txns)
+          and all(o.fast_path and o.rtts == 1 for o in single)
+          and all(o.rtts >= 2 for o in cross),
+          f"atomic step commits: "
+          f"{[(o.status.name, o.n_shards, o.rtts) for o in clock.txns]}")
+    say(card, f"serving {cfg.name}: Python witness backend tokens and "
+              f"fast/slow commits {counts[1]} identical"
+              + (f" (FULL rejects by shard {full})" if full else "")
+              + f"; atomic step commits: tokens identical, "
+                f"{len(single)} single-shard steps on 1 RTT, {len(cross)} "
+                f"cross-shard committed in "
+                f"{sorted({o.rtts for o in cross})} rounds; launches "
+              + ", ".join(f"{k} {launched[k]}" for k in (
+                  "gang_record", "gang_fastpath", "gang_gc",
+                  "gang_record_groups")))
+    return dict(python_fast_slow=counts[1], full_by_shard=full,
+                atomic=dict(single=len(single), cross=len(cross),
+                            launches=launched))
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout of the "
@@ -2000,6 +2446,8 @@ def main() -> int:
     times.update(run("times K9-K11", phase_txn_times, np, torch, card,
                      "cuda", txn_shapes))
     idle = run("idle", phase_idle, np, torch, dev_cluster, card)
+    serve_launches, serve_info = run("serving", phase_serving, np, torch,
+                                     card, "cuda")
     say(card, "wall s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in wall.items())
         + f"; total {time.perf_counter() - t0:.1f}")
@@ -2016,6 +2464,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, kernels=kernels, slice=slice_info, table_path=table_info,
         txn=txn_info, txn_launches=txn_launches, times=times, idle=idle,
+        serving=serve_info, serving_launches=serve_launches,
         wall_s=wall,
         ptxas=build.ptxas_reports()), indent=1, default=str))
     print(card)

@@ -1,0 +1,308 @@
+"""Shared model layers: norms, RoPE / M-RoPE, GQA attention (full + sliding
+window; train, prefill, and single-token decode), dense MLPs.
+
+The torch port of ``repro.models.layers``: the same arithmetic in the same
+order and types, as plain torch ops (the JAX package has no Pallas here, so
+there is no kernel to write).  Attention is written out with einsum, never
+``scaled_dot_product_attention``, because the port is held against this
+arithmetic: f32 scores, ``-1e30`` masking, probabilities cast to the query
+type before the PV product.  Parameters live on small ``nn.Module``s whose
+attribute names are the reference's parameter keys.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import ModelConfig
+from .shardctx import constrain
+
+
+class Init:
+    """Random init on one device: one ``torch.Generator`` draws every
+    parameter in f32 (scaled as the reference's ``init_params``), then casts
+    it to the model's type, so a bf16 model is its f32 twin rounded.  On
+    the ``meta`` device nothing is drawn."""
+
+    def __init__(self, device: torch.device, dtype: torch.dtype,
+                 seed: int) -> None:
+        self.device, self.dtype = device, dtype
+        self.gen = None
+        if device.type != "meta":
+            self.gen = torch.Generator(device=device)
+            self.gen.manual_seed(seed)
+
+    def _param(self, t: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(t.to(self.dtype))
+
+    def normal(self, shape, scale: float) -> nn.Parameter:
+        t = torch.randn(shape, generator=self.gen, device=self.device,
+                        dtype=torch.float32)
+        return self._param(t * scale)
+
+    def full(self, shape, value: float) -> nn.Parameter:
+        return self._param(torch.full(shape, value, device=self.device,
+                                      dtype=torch.float32))
+
+    def value(self, t: torch.Tensor) -> nn.Parameter:
+        return self._param(t.to(device=self.device, dtype=torch.float32))
+
+
+# ----------------------------------------------------------------------------
+# norms
+# ----------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * w
+
+
+# ----------------------------------------------------------------------------
+# RoPE / M-RoPE
+# ----------------------------------------------------------------------------
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, dh]; pos: [B, S] int32.  Halves split, not
+    interleaved."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)      # [dh/2]
+    return _rotate(x, pos[..., None].float() * freqs)     # ang [B, S, dh/2]
+
+
+def apply_mrope(
+    x: torch.Tensor, pos3: torch.Tensor, theta: float,
+    sections: Tuple[int, int, int],
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  pos3: [3, B, S] (t/h/w position streams);
+    the dh/2 frequency slots are split into 3 sections, each rotated by its
+    own stream."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)      # [half]
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))
+    pos_sel = torch.movedim(pos3[sec_id], 0, -1)          # [B, S, half]
+    return _rotate(x, pos_sel.float() * freqs)
+
+
+def _position_embed(cfg: ModelConfig, q, k, positions):
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.pos == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    return q, k
+
+
+# ----------------------------------------------------------------------------
+# attention
+# ----------------------------------------------------------------------------
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, init: Init) -> None:
+        super().__init__()
+        d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        s = d ** -0.5
+        self.wq = init.normal((d, hq * dh), s)
+        self.wk = init.normal((d, hkv * dh), s)
+        self.wv = init.normal((d, hkv * dh), s)
+        self.wo = init.normal((hq * dh, d), (hq * dh) ** -0.5)
+        if cfg.qk_norm:
+            self.q_norm = init.full((dh,), 1.0)
+            self.k_norm = init.full((dh,), 1.0)
+
+
+def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor):
+    B, S, _ = x.shape
+    q = (x @ p.wq).reshape(B, S, cfg.n_heads, cfg.d_head)
+    k = (x @ p.wk).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    v = (x @ p.wv).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
+        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+    return q, k, v
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
+    """q: [B,S,Hq,dh]; k,v: [B,T,Hkv,dh]; mask: [B,1,S,T] or broadcastable.
+
+    Grouped GQA form (no KV head repeat): scores in f32, masked with -1e30,
+    softmax in f32, probabilities cast to q's type for the PV product."""
+    B, S, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, dh)
+    scale = 1.0 / math.sqrt(dh)
+    logits = torch.einsum("bsgrd,btgd->bgrst", qg, k).float() * scale
+    logits = torch.where(mask[:, :, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.einsum("bgrst,btgd->bsgrd", probs, v)
+    return o.reshape(B, S, Hq, dh)
+
+
+def make_attn_mask(
+    cfg: ModelConfig, S: int, is_global: bool, device=None,
+) -> torch.Tensor:
+    """[1, 1, S, S] boolean mask for training/prefill."""
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(S, device=device)[None, :]
+    if cfg.causal:
+        m = j <= i
+    else:
+        m = torch.ones((S, S), dtype=torch.bool, device=device)
+    if cfg.attn == "swa" and not is_global:
+        m = m & (j > i - cfg.swa_window)
+    return m[None, None]
+
+
+def _sdpa_blockwise(
+    cfg: ModelConfig, q, k, v, *, is_global: bool, block: int = 512,
+) -> torch.Tensor:
+    """Flash-style blockwise attention: online softmax over KV blocks (a
+    Python loop where the reference scans).  Never materializes the S x S
+    score matrix; GQA is computed grouped (no KV head repeat)."""
+    B, S, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    rep = Hq // Hkv
+    if S % 16 == 0 and S // 16 >= 128:
+        qb = S // 16
+    else:
+        qb = min(block, S)
+    kvb = min(block, S)
+    nq, nk = S // qb, S // kvb
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    qg = q.reshape(B, nq, qb, Hkv, rep, dh)
+    kg = k.reshape(B, nk, kvb, Hkv, dh)
+    vg = v.reshape(B, nk, kvb, Hkv, dh)
+    q_pos = torch.arange(S, device=dev).reshape(nq, qb)
+
+    acc = torch.zeros((B, nq, qb, Hkv, rep, dh), dtype=torch.float32,
+                      device=dev)
+    m = torch.full((B, nq, qb, Hkv, rep), -math.inf, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, nq, qb, Hkv, rep), dtype=torch.float32, device=dev)
+    for kidx in range(nk):
+        kblk, vblk = kg[:, kidx], vg[:, kidx]
+        logits = torch.einsum(
+            "bnqhrd,bkhd->bnqhrk", qg, kblk
+        ).float() * scale                                  # [B,nq,qb,H,r,kvb]
+        k_pos = kidx * kvb + torch.arange(kvb, device=dev)
+        msk = torch.ones((nq, qb, kvb), dtype=torch.bool, device=dev)
+        if cfg.causal:
+            msk = msk & (k_pos[None, None, :] <= q_pos[:, :, None])
+        if cfg.attn == "swa" and not is_global:
+            msk = msk & (
+                k_pos[None, None, :] > q_pos[:, :, None] - cfg.swa_window
+            )
+        logits = torch.where(msk[None, :, :, None, None, :], logits, -1e30)
+        new_m = torch.maximum(m, torch.amax(logits, dim=-1))
+        alpha = torch.exp(m - new_m)
+        pexp = torch.exp(logits - new_m[..., None])
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bnqhrk,bkhd->bnqhrd", pexp.to(q.dtype), vblk
+        ).float()
+        l = l * alpha + torch.sum(pexp, dim=-1)
+        m = new_m
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.reshape(B, S, Hq, dh).to(q.dtype)
+
+
+def attention_train(
+    cfg: ModelConfig, p: Attention, x: torch.Tensor,
+    positions: torch.Tensor, is_global: bool,
+) -> torch.Tensor:
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, p, x)
+    q, k = _position_embed(cfg, q, k, positions)
+    q = constrain(q, "heads")
+    k = constrain(k, "kv_heads")
+    v = constrain(v, "kv_heads")
+    # The reference's flat-heads blockwise path is taken only when heads
+    # are tensor-parallel (shardctx.heads_are_tp), which needs a mesh.
+    if S > 1024:
+        o = _sdpa_blockwise(cfg, q, k, v, is_global=is_global)
+    else:
+        o = _sdpa(cfg, q, k, v, make_attn_mask(cfg, S, is_global, x.device))
+    o = constrain(o, "heads")
+    return o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p.wo
+
+
+def attention_decode(
+    cfg: ModelConfig, p: Attention, x: torch.Tensor,
+    kv_cache: Tuple[torch.Tensor, torch.Tensor],
+    cur_pos: torch.Tensor,                    # [B] int32: tokens so far
+    positions: torch.Tensor,                  # [B, 1] (or [3,B,1] mrope)
+    is_global: bool,
+    active: torch.Tensor,                     # [B] int32 (0 => don't write)
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Single-token decode with a ring-buffered, PER-SEQUENCE KV cache.
+
+    kv_cache: (k, v) each [B, C, Hkv, dh]; C = full seq_len for global
+    layers, swa_window for windowed layers.  Each sequence writes at its own
+    cur_pos[b] % C, IN PLACE: an inactive row writes back the slot it holds
+    (the reference drops its out-of-bounds scatter), so its K/V stay
+    untouched and no row's arithmetic depends on another's."""
+    B = x.shape[0]
+    kc, vc = kv_cache
+    C = kc.shape[1]
+    q, k, v = _qkv(cfg, p, x)
+    q, k = _position_embed(cfg, q, k, positions)
+    slot = (cur_pos % C).long()
+    bidx = torch.arange(B, device=x.device)
+    keep = (active > 0)[:, None, None]
+    kc[bidx, slot] = torch.where(keep, k[:, 0].to(kc.dtype), kc[bidx, slot])
+    vc[bidx, slot] = torch.where(keep, v[:, 0].to(vc.dtype), vc[bidx, slot])
+    # A ring slot t is valid if written (t <= pos) or the ring has wrapped.
+    t = torch.arange(C, device=x.device)
+    valid = (t[None, :] <= cur_pos[:, None]) | (cur_pos[:, None] >= C)
+    mask = valid[:, None, None, :]              # [B,1,1,C]
+    o = _sdpa(cfg, q, kc, vc, mask)
+    out = o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ p.wo
+    return out, (kc, vc)
+
+
+# ----------------------------------------------------------------------------
+# MLP
+# ----------------------------------------------------------------------------
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, init: Init,
+                 d_ff: Optional[int] = None) -> None:
+        super().__init__()
+        d = cfg.d_model
+        ff = d_ff if d_ff is not None else cfg.d_ff
+        if cfg.act == "swiglu":
+            self.w_gate = init.normal((d, ff), d ** -0.5)
+        self.w_up = init.normal((d, ff), d ** -0.5)
+        self.w_down = init.normal((ff, d), ff ** -0.5)
+
+
+def mlp(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        g = F.silu(x @ p.w_gate)
+        u = x @ p.w_up
+        h = constrain(g * u, "ffn")
+        return h @ p.w_down
+    if cfg.act == "relu2":   # squared ReLU (Nemotron-4 / Primer)
+        h = F.relu(x @ p.w_up)
+        h = constrain(h * h, "ffn")
+        return h @ p.w_down
+    raise ValueError(cfg.act)

@@ -1,0 +1,313 @@
+"""Unified model: one code path drives all 10 assigned architectures.
+
+The torch port of ``repro.models.transformer``.  A :class:`Transformer`
+module holds the parameters (an ``nn.ModuleList`` of blocks, one per layer,
+where the reference stacks them for ``lax.scan``); ``forward``,
+``loss_fn``, ``init_decode_cache``, ``decode_step`` and ``prefill`` are
+plain functions over it, run eagerly layer by layer.  The decode cache
+keeps the reference's layout, per segment of ``segments(cfg)``:
+
+    [single 0] [scan 1..14] [single 15] [scan 16..30] [single 31]
+
+(Hymba), each segment's tensors stacked over its layers, with window-sized
+KV for SWA layers and ``max_seq`` KV for global ones.  ``decode_step``
+writes the cache in place.  Every entry point places its tensors on
+``device`` ("cuda" unless the caller asks for another) and raises when it
+names a CUDA device and none is present: nothing falls back to the CPU.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Tuple
+
+import torch
+from torch import nn
+
+from .config import ModelConfig
+from .layers import (
+    MLP,
+    Attention,
+    Init,
+    attention_decode,
+    attention_train,
+    mlp,
+    rmsnorm,
+)
+from .moe import MoE, moe_forward
+from .shardctx import constrain
+from .ssm import SSM, init_ssm_cache, ssm_decode, ssm_train
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch device; a CUDA device must exist (there is no
+    fallback to the CPU: the caller asks for it by name)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the model zoo runs on a CUDA device and none is available; "
+            "pass device='cpu' to run it on the CPU")
+    return device
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``ModelConfig.dtype`` ("bfloat16", "float32", ...) as a torch
+    dtype."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+# ----------------------------------------------------------------------------
+# segmentation
+# ----------------------------------------------------------------------------
+def segments(cfg: ModelConfig) -> List[Tuple[str, int, int]]:
+    """[("scan"|"single", start, end)] covering 0..n_layers in order."""
+    if cfg.attn != "swa" or not cfg.global_attn_layers:
+        return [("scan", 0, cfg.n_layers)]
+    segs: List[Tuple[str, int, int]] = []
+    cur = 0
+    for g in sorted(cfg.global_attn_layers):
+        if g > cur:
+            segs.append(("scan", cur, g))
+        segs.append(("single", g, g + 1))
+        cur = g + 1
+    if cur < cfg.n_layers:
+        segs.append(("scan", cur, cfg.n_layers))
+    return segs
+
+
+# ----------------------------------------------------------------------------
+# the module
+# ----------------------------------------------------------------------------
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, init: Init) -> None:
+        super().__init__()
+        self.norm1 = init.full((cfg.d_model,), 1.0)
+        if cfg.has_attn:
+            self.attn = Attention(cfg, init)
+        if cfg.ssm:
+            self.ssm = SSM(cfg, init)
+        if cfg.has_moe:
+            self.norm2 = init.full((cfg.d_model,), 1.0)
+            self.moe = MoE(cfg, init)
+        elif cfg.has_dense_mlp:
+            self.norm2 = init.full((cfg.d_model,), 1.0)
+            self.mlp = MLP(cfg, init)
+
+
+class Transformer(nn.Module):
+    """The parameters of one architecture on one device, drawn from
+    ``seed`` by a ``torch.Generator`` at the reference's scales (the
+    reference's own weights come in through ``convert.params_from_jax``
+    and :meth:`from_state_dict`)."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        init = Init(self.device, torch_dtype(cfg.dtype), seed)
+        d = cfg.d_model
+        self.embed = init.normal((cfg.vocab, d), d ** -0.5)
+        if cfg.frontend != "token":
+            fd = cfg.frontend_dim or d
+            self.frontend_proj = init.normal((fd, d), fd ** -0.5)
+        self.blocks = nn.ModuleList(Block(cfg, init)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = init.full((d,), 1.0)
+        if not cfg.tie_embeddings:
+            self.lm_head = init.normal((d, cfg.vocab), d ** -0.5)
+
+    @classmethod
+    def from_state_dict(cls, cfg: ModelConfig,
+                        state: Mapping[str, torch.Tensor],
+                        device="cuda") -> "Transformer":
+        """The module on ``device`` holding exactly ``state`` (every key,
+        cast to the config's dtype), with no random draw."""
+        device = resolve_device(device)
+        model = cls(cfg, device="meta").to_empty(device=device)
+        model.device = device
+        model.load_state_dict(state, strict=True)
+        return model
+
+    def head(self) -> torch.Tensor:
+        """[D, V]: the LM head, or ``embed.T`` when embeddings are tied."""
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device="cuda") -> Transformer:
+    """The reference's ``init_params(cfg, key)``: fresh random weights,
+    here a :class:`Transformer` drawn from ``seed`` on ``device``."""
+    return Transformer(cfg, device=device, seed=seed)
+
+
+# ----------------------------------------------------------------------------
+# forward (train / encode / prefill-logits)
+# ----------------------------------------------------------------------------
+def _block_train(cfg: ModelConfig, p: Block, x, positions, is_global: bool):
+    h = rmsnorm(x, p.norm1, cfg.norm_eps)
+    parts = []
+    if cfg.has_attn:
+        parts.append(attention_train(cfg, p.attn, h, positions, is_global))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.ssm:
+        parts.append(ssm_train(cfg, p.ssm, h))
+    mix = parts[0] if len(parts) == 1 else (parts[0] + parts[1]) * 0.5
+    x = x + mix
+    if cfg.has_moe:
+        h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
+        out, aux = moe_forward(cfg, p.moe, h2)
+        x = x + out
+    elif cfg.has_dense_mlp:
+        h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
+        x = x + mlp(cfg, p.mlp, h2)
+    return constrain(x, "residual"), aux
+
+
+def embed_inputs(cfg: ModelConfig, params: Transformer,
+                 batch: Dict) -> torch.Tensor:
+    if cfg.frontend == "token":
+        x = params.embed[batch["tokens"]]
+    else:
+        # audio / vision stubs: precomputed frame/patch embeddings (spec).
+        x = batch["embeds"] @ params.frontend_proj
+    return constrain(x, "residual")
+
+
+def forward(
+    cfg: ModelConfig, params: Transformer, batch: Dict,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits [B,S,V], aux_loss)."""
+    x = embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    if "positions" in batch:
+        positions = batch["positions"]
+    else:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, blk in enumerate(params.blocks):
+        x, a = _block_train(cfg, blk, x, positions, cfg.layer_is_global(i))
+        aux_total = aux_total + a
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = constrain(x @ params.head(), "logits")
+    return logits, aux_total
+
+
+def loss_fn(
+    cfg: ModelConfig, params: Transformer, batch: Dict,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits, aux = forward(cfg, params, batch)
+    labels = batch["labels"].long()
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    ll = torch.gather(logits32, -1, labels[..., None])[..., 0]
+    nll = lse - ll
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp_min(torch.sum(mask), 1.0)
+    else:
+        denom = torch.tensor(float(nll.numel()), device=nll.device)
+    ce = torch.sum(nll) / denom
+    total = ce + cfg.router_aux_coef * aux
+    return total, {"ce": ce, "aux": aux}
+
+
+# ----------------------------------------------------------------------------
+# decode path (serve_step)
+# ----------------------------------------------------------------------------
+def init_decode_cache(
+    cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device="cuda",
+) -> Dict:
+    """Cache: per segment, stacked over the segment's layers."""
+    device = resolve_device(device)
+    dtype = dtype or torch_dtype(cfg.dtype)
+    segs = []
+    for kind, s, e in segments(cfg):
+        n = e - s
+        entry: Dict[str, Any] = {}
+        if cfg.has_attn:
+            is_global = cfg.layer_is_global(s) if kind == "single" else (
+                cfg.attn == "full"
+            )
+            C = max_seq if is_global else min(cfg.swa_window, max_seq)
+            shape = (n, batch, C, cfg.n_kv_heads, cfg.d_head)
+            entry["k"] = torch.zeros(shape, dtype=dtype, device=device)
+            entry["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        if cfg.ssm:
+            one = init_ssm_cache(cfg, batch, dtype, device)
+            entry["ssm"] = {name: torch.zeros((n,) + a.shape, dtype=a.dtype,
+                                              device=device)
+                            for name, a in one.items()}
+        segs.append(entry)
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "segments": segs}
+
+
+def _block_decode(cfg: ModelConfig, p: Block, x, entry, j: int, cur_pos,
+                  positions, is_global: bool, active):
+    """Layer ``j`` of a segment's cache ``entry``, written in place."""
+    h = rmsnorm(x, p.norm1, cfg.norm_eps)
+    parts = []
+    if cfg.has_attn:
+        o, _ = attention_decode(
+            cfg, p.attn, h, (entry["k"][j], entry["v"][j]), cur_pos,
+            positions, is_global, active,
+        )
+        parts.append(o)
+    if cfg.ssm:
+        cache = {name: t[j] for name, t in entry["ssm"].items()}
+        o, new = ssm_decode(cfg, p.ssm, h, cache, active)
+        for name, t in new.items():
+            cache[name].copy_(t)
+        parts.append(o)
+    mix = parts[0] if len(parts) == 1 else (parts[0] + parts[1]) * 0.5
+    x = x + mix
+    if cfg.has_moe:
+        h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
+        out, _ = moe_forward(cfg, p.moe, h2)
+        x = x + out
+    elif cfg.has_dense_mlp:
+        h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
+        x = x + mlp(cfg, p.mlp, h2)
+    return x
+
+
+@torch.no_grad()
+def decode_step(
+    cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dict,
+) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode.  batch: {"tokens": [B,1]} (or {"embeds": [B,1,fd]});
+    optional "positions" ([B,1] or [3,B,1]) and "active" ([B] int32: rows
+    with 0 neither write caches nor advance).  Returns (logits [B,V] f32,
+    cache): the cache's tensors are written in place and its "pos" becomes
+    ``pos + active``."""
+    x = embed_inputs(cfg, params, batch)
+    B = x.shape[0]
+    cur_pos = cache["pos"]                       # [B]
+    active = batch.get("active")
+    if active is None:
+        active = torch.ones((B,), dtype=torch.int32, device=x.device)
+    if "positions" in batch:
+        positions = batch["positions"]
+    else:
+        positions = cur_pos.to(torch.int32)[:, None]
+    for (_, s, e), entry in zip(segments(cfg), cache["segments"]):
+        for i in range(s, e):
+            x = _block_decode(cfg, params.blocks[i], x, entry, i - s,
+                              cur_pos, positions, cfg.layer_is_global(i),
+                              active)
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = (x[:, 0, :] @ params.head()).float()
+    cache["pos"] = cur_pos + active
+    return logits, cache
+
+
+def prefill(
+    cfg: ModelConfig, params: Transformer, batch: Dict,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill forward: returns (last-position logits, all logits).
+    (Serving builds its caches by decode, as the reference does.)"""
+    logits, _ = forward(cfg, params, batch)
+    return logits[:, -1, :], logits

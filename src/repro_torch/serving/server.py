@@ -1,0 +1,195 @@
+"""CurpServeDriver: batched autoregressive serving with CURP-durable
+sessions.
+
+The serving master is speculative state (model KV caches + live sessions);
+durability comes from (a) witness-recorded session commits (1 RTT) and (b)
+batched backup syncs — both via CurpSessionStore.  After a master crash the
+driver restores sessions from the recovered store and REBUILDS the KV caches
+by re-prefilling each live session's tokens (the compute-for-durability
+trade CURP makes: journal bytes are tiny because state is recomputable).
+
+The torch port of ``repro.serving.server``: the session and commit logic is
+the reference's, line for line.  ``ServeConfig.device`` places the model,
+its cache and the store's witness gang; a decode step runs eagerly under
+``torch.inference_mode()`` (the reference jits it), always at ``max_batch``
+rows so one row's logits never depend on which other rows are active.  A
+step copies its tokens and active mask to the device in one copy and its
+next tokens back in another (the argmax runs on the device).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core import WitnessGeometry
+from ..core.telemetry import get_registry
+from ..models.config import ModelConfig
+from ..models.transformer import (
+    Transformer,
+    decode_step,
+    init_decode_cache,
+    resolve_device,
+)
+from .kvstore import CurpSessionStore, SessionState
+
+
+@dataclass
+class ServeConfig:
+    max_batch: int = 8
+    max_seq: int = 128
+    commit_every: int = 1      # session commits per generated token
+    f: int = 3
+    sync_batch: int = 50
+    n_shards: int = 1          # session partitions (one master group each)
+    # Slot-table size for the session router: the unit of live migration
+    # (CurpSessionStore.migrate_sessions / rebalance moves slots between
+    # master groups with no serving pause on untouched slots).
+    n_slots: int = 256
+    # Witness table shape (S x W), threaded down to the gang kernels.
+    witness_geometry: WitnessGeometry = field(default_factory=WitnessGeometry)
+    # "python" (protocol-reference slot walk) or "device" (the witness gang
+    # on the CUDA kernels; one fused dispatch per commit batch).
+    witness_backend: str = "python"
+    # Commit each decode step's sessions as ONE atomic cross-shard
+    # mini-transaction (CurpSessionStore.txn) instead of the per-session
+    # durable batch: a crash can never persist half a step's sessions.
+    atomic_step_commit: bool = False
+    # Where the model, its decode cache and the store's witness gang live:
+    # "cuda" (raises without a card) or "cpu".
+    device: str = "cuda"
+
+
+class CurpServeDriver:
+    def __init__(self, cfg: ModelConfig, serve: ServeConfig,
+                 params: Optional[Transformer] = None, seed: int = 0) -> None:
+        assert cfg.can_decode, "serving needs a decoder"
+        self.cfg = cfg
+        self.serve = serve
+        self.device = resolve_device(serve.device)
+        if params is None:
+            params = Transformer(cfg, device=self.device, seed=seed)
+        elif params.device != self.device:
+            raise ValueError(f"params live on {params.device}, the serve "
+                             f"config asks for {self.device}")
+        self.params = params
+        self.store = CurpSessionStore(f=serve.f, sync_batch=serve.sync_batch,
+                                      n_shards=serve.n_shards,
+                                      geometry=serve.witness_geometry,
+                                      witness_backend=serve.witness_backend,
+                                      n_slots=serve.n_slots,
+                                      device=serve.device)
+        self.sessions: Dict[str, SessionState] = {}
+        self._reset_cache()
+        self.tokens_served = 0
+        reg = get_registry()
+        self._m_tokens = reg.counter("serve.tokens")
+        self._h_commit = reg.histogram("serve.commit_sessions")
+        self._m_recoveries = reg.counter("serve.recoveries")
+        self._m_replayed = reg.counter("serve.replayed_ops")
+
+    def _decode(self, host: np.ndarray) -> torch.Tensor:
+        """One decode step of all ``max_batch`` rows; ``host`` is [2, B]
+        int32, tokens over the active mask.  Returns the f32 logits."""
+        dev = torch.from_numpy(host).to(self.device)
+        batch = {"tokens": dev[0][:, None], "active": dev[1]}
+        with torch.inference_mode():
+            logits, self.cache = decode_step(self.cfg, self.params, batch,
+                                             self.cache)
+        return logits
+
+    def _reset_cache(self) -> None:
+        self.cache = init_decode_cache(
+            self.cfg, self.serve.max_batch, self.serve.max_seq,
+            device=self.device,
+        )
+        self.slots: List[Optional[str]] = [None] * self.serve.max_batch
+
+    # -- session management --------------------------------------------------------
+    def submit(self, session_id: str, prompt: List[int]) -> None:
+        s = SessionState(session_id, list(prompt))
+        self.sessions[session_id] = s
+        self.store.commit(s)
+        slot = self.slots.index(None)
+        self.slots[slot] = session_id
+        # Feed all but the last token: step() feeds tokens[-1], keeping the
+        # fed-token stream identical across normal and recovered runs.
+        self._replay_tokens(slot, s.tokens[:-1])
+
+    def _replay_tokens(self, slot: int, tokens: List[int]) -> None:
+        """Feed tokens through decode to build this slot's KV/SSM state; the
+        per-slot active mask keeps other sessions' caches and positions
+        untouched (mixed-length batching)."""
+        for t in tokens:
+            self._decode(self._batch_for(slot, t))
+
+    def _batch_for(self, slot: int, token: int) -> np.ndarray:
+        host = np.zeros((2, self.serve.max_batch), np.int32)
+        host[0, slot] = token
+        host[1, slot] = 1
+        return host
+
+    # -- decoding -----------------------------------------------------------------
+    def step(self) -> Dict[str, int]:
+        """One batched decode step for every live slot; commit via CURP."""
+        live = [(i, sid) for i, sid in enumerate(self.slots) if sid]
+        if not live:
+            return {}
+        host = np.zeros((2, self.serve.max_batch), np.int32)
+        last, active = host
+        for i, sid in live:
+            last[i] = self.sessions[sid].tokens[-1]
+            active[i] = 1
+        logits = self._decode(host)
+        out: Dict[str, int] = {}
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        to_commit: List[SessionState] = []
+        for i, sid in live:
+            tok = int(nxt[i])
+            s = self.sessions[sid]
+            s.tokens.append(tok)
+            out[sid] = tok
+            self.tokens_served += 1
+            self._m_tokens.inc()
+            if len(s.tokens) % self.serve.commit_every == 0:
+                to_commit.append(s)
+        # One batched CURP round for the whole decode step: distinct session
+        # keys commute, so the batch completes via each shard's 1-RTT path.
+        # With atomic_step_commit the step commits as ONE mini-transaction
+        # instead (all-or-nothing across shards; single-shard steps keep the
+        # 1-RTT short-circuit).
+        self._h_commit.record(len(to_commit))
+        if self.serve.atomic_step_commit:
+            self.store.txn(to_commit)
+        else:
+            self.store.commit_batch(to_commit)
+        return out
+
+    def generate(self, n_tokens: int) -> None:
+        for _ in range(n_tokens):
+            self.step()
+
+    # -- failures -----------------------------------------------------------------
+    def crash_and_recover(self) -> Dict[str, int]:
+        """Master (driver state) dies; sessions recover from CURP store; KV
+        caches rebuild by re-prefill."""
+        report = self.store.crash_and_recover()
+        live_ids = [sid for sid in self.slots if sid]
+        self.sessions = {}
+        self._reset_cache()
+        recovered = 0
+        for sid in live_ids:
+            s = self.store.load(sid)
+            if s is None:
+                continue
+            self.sessions[sid] = s
+            slot = self.slots.index(None)
+            self.slots[slot] = sid
+            self._replay_tokens(slot, s.tokens[:-1])
+            recovered += 1
+        self._m_recoveries.inc()
+        self._m_replayed.inc(report.replayed)
+        return {"recovered_sessions": recovered,
+                "replayed_ops": report.replayed}

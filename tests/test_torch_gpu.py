@@ -294,3 +294,51 @@ def test_txn_stream_on_the_card_matches_the_cpu(cuda):
     on_cpu, cnt_cpu = drive("cpu")
     assert on_card == on_cpu
     np.testing.assert_array_equal(cnt_card, cnt_cpu)
+
+
+def test_reduced_decode_on_the_card_matches_the_cpu(cuda):
+    """The reduced llama in f32 (TF32 off), one module's weights on both
+    devices: 12 decode steps of 4 rows with a random active mask; logits
+    within 1e-4 (f32 sums in other orders), pos and the tokens' argmax
+    identical, and a serving driver on the card's device witness gang
+    generating the CPU driver's tokens."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import (
+        Transformer,
+        decode_step,
+        init_decode_cache,
+        reduced,
+    )
+    from repro_torch.serving import CurpServeDriver, ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(ARCHS["llama3.2-1b"])
+    cpu = Transformer(cfg, device="cpu", seed=4)
+    card = Transformer.from_state_dict(cfg, cpu.state_dict(), device=cuda)
+    rng = np.random.default_rng(6)
+    caches = {d: init_decode_cache(cfg, 4, 16, device=d)
+              for d in ("cpu", cuda)}
+    for _ in range(12):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1))).int()
+        act = torch.from_numpy(rng.integers(0, 2, 4)).int()
+        got, caches[cuda] = decode_step(cfg, card, {
+            "tokens": toks.to(cuda), "active": act.to(cuda)}, caches[cuda])
+        want, caches["cpu"] = decode_step(cfg, cpu, {
+            "tokens": toks, "active": act}, caches["cpu"])
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=1e-4)
+    assert torch.equal(caches[cuda]["pos"].cpu(), caches["cpu"]["pos"])
+
+    def serve(device, model):
+        d = CurpServeDriver(cfg, ServeConfig(
+            max_batch=4, max_seq=32, n_shards=2, witness_backend="device",
+            device=device), params=model)
+        d.submit("a", [5, 17, 99])
+        d.submit("b", [1, 2])
+        d.generate(6)
+        return {sid: s.tokens for sid, s in d.sessions.items()}
+
+    before = ops.GANG_FASTPATH.launches
+    assert serve(cuda, card) == serve("cpu", cpu)
+    assert ops.GANG_FASTPATH.launches >= before + 6

@@ -20,6 +20,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.kernels.parity, repro_torch.sim\n"
+        "import repro_torch.models, repro_torch.models.convert\n"
+        "import repro_torch.configs, repro_torch.serving\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -64,6 +66,65 @@ def test_device_backend_runs_on_the_card_by_default(name):
     else:
         with pytest.raises(RuntimeError, match="CUDA device"):
             build()
+
+
+def _serving_entries():
+    from repro_torch.configs import ARCHS, concrete_batch
+    from repro_torch.models import Transformer, init_decode_cache, reduced
+    from repro_torch.serving import (
+        CurpServeDriver,
+        CurpSessionStore,
+        ServeConfig,
+    )
+
+    cfg = reduced(ARCHS["llama3.2-1b"])
+    return {
+        "CurpServeDriver": lambda: CurpServeDriver(cfg, ServeConfig()),
+        "ServeConfig": lambda: CurpServeDriver(
+            cfg, ServeConfig(witness_backend="device")),
+        "Transformer": lambda: Transformer(cfg),
+        "init_decode_cache": lambda: init_decode_cache(cfg, 2, 8),
+        "concrete_batch": lambda: concrete_batch(cfg, "decode", 2, 1),
+        "CurpSessionStore": lambda: CurpSessionStore(
+            n_shards=2, witness_backend="device"),
+    }
+
+
+def _tensors_of(out):
+    from repro_torch.models import Transformer
+    from repro_torch.serving import CurpServeDriver, CurpSessionStore
+
+    if isinstance(out, CurpServeDriver):
+        return (list(out.params.parameters()) + [out.cache["pos"]]
+                + [t for seg in out.cache["segments"] for t in seg.values()])
+    if isinstance(out, Transformer):
+        return list(out.parameters())
+    if isinstance(out, CurpSessionStore):
+        return list(out.cluster.gang.table)
+    if isinstance(out, dict) and "segments" in out:
+        return [out["pos"]] + [t for seg in out["segments"]
+                               for t in seg.values()]
+    return list(out.values())
+
+
+@pytest.mark.parametrize("name", ["CurpServeDriver", "ServeConfig",
+                                  "Transformer", "init_decode_cache",
+                                  "concrete_batch", "CurpSessionStore"])
+def test_serving_entry_runs_on_the_card_by_default(name):
+    """The serving path's entry points, given no device (``ServeConfig``
+    names "cuda" by default, for the model, its cache and, on the device
+    witness backend, the store's gang), land on the card; without one they
+    raise rather than falling back to the CPU."""
+    from repro_torch.serving import ServeConfig
+
+    assert ServeConfig().device == "cuda"
+    call = _serving_entries()[name]
+    if torch.cuda.is_available():
+        tensors = _tensors_of(call())
+        assert tensors and all(t.device.type == "cuda" for t in tensors)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
 
 
 def _single_table_entries():
