@@ -186,6 +186,33 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    kernels' launches per step, the device's idle share over one profiled
    step and the host's self time by operator over another.
 
+8. Training (run last; launches counted from 0 over this phase alone,
+   and it must launch none of the port's kernels: the model is plain
+   torch): ``repro_torch.ft.FaultTolerantTrainer`` on the card at the
+   published width and depth of smollm-360m (32 layers, d 960, 15/5
+   heads, d_ff 2560, vocab 49,152, untied head, 409,007,040 parameters),
+   bf16 weights drawn from a seed, remat on, f32 Adam moments, under
+   ``DataConfig(seed=1234, batch=2, seq=4096)`` (train_4k's sequence, a
+   micro-batch of its 256), ``FTConfig(f=3, sync_every=5)`` and
+   ``AdamWConfig(warmup_steps=5, total_steps=1000)``, its witnesses and
+   backups in a temporary directory that is removed as each trainer's
+   digests are taken.  The reference's recovery schedule at full width:
+   trainer A trains 13 steps; trainer B trains 8, crashes, restores the
+   step-5 backup (restored 5, replayed 3) and trains to 13; B's weights
+   and Adam moments equal A's bit for bit (each step runs under
+   deterministic algorithms, cuBLAS with ``CUBLAS_WORKSPACE_CONFIG``, set
+   here before torch is imported).  Every witness records every step of
+   its epoch and, after each sync, holds none of the synced steps; a byte
+   flipped in a backup's state makes its restore raise IOError.  The f32
+   twin's one step on the card (TF32 off) against the CPU at 1 x 128:
+   loss and grad norm within ``TRAIN_LOSS_RTOL``, the updated weights
+   within 2 x lr + ``TRAIN_PARAM_OFF``, all but a ``TRAIN_PARAM_OFF_SHARE``
+   of them within ``TRAIN_PARAM_OFF``.  Reports the step's p50 and p99
+   (CUDA events), tokens/s, the model FLOPs a step as a share of the dense
+   bf16 peak (remat's extra forward beside it), peak CUDA memory, each
+   sync's wall time and bytes, the peak bytes on disk, the recovery's
+   time and the device's idle share over one profiled step.
+
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``;
 the line before them names the card and its power limit.  Details also go
 to ``chiprun_out/chip_smoke.json``.
@@ -193,8 +220,12 @@ to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -240,6 +271,30 @@ SERVE_BATCH, SERVE_MAX_SEQ, SERVE_SHARDS = 8, 256, 4
 SERVE_PROMPT, SERVE_TOKENS, SERVE_CRASH_AT = (16, 48), 32, 16
 SERVE_NUMERIC_STEPS = 8
 BF16_LOGIT_TOL, F32_LOGIT_TOL = 0.25, 1e-3
+# Training (phase 8): CURP-FT at smollm-360m's published width and depth
+# (bf16 weights, remat, f32 moments), train_4k's sequence of 4096 in a
+# micro-batch of 2, f = 3 witnesses and backups, a sync every 5 steps; the
+# reference's recovery schedule (13 steps; a second trainer crashes after
+# 8, restores the step-5 backup and replays 3).  The f32 twin's one step on
+# the card (TF32 off) against the CPU, at batch 1 x 128: the loss and the
+# grad norm come out of products of 960-49,152 terms through 32 layers and
+# back, summed in other orders (f32 rounds at 2^-24, and phase 7's f32
+# logits met the CPU's within 2e-6 relative over 16 layers): 1e-4
+# relative.  A first AdamW step moves each weight by lr x g / (|g| + eps
+# / scale), +-lr unless |g| is tiny, so a gradient within rounding of 0
+# can take the other sign on the two devices and put a weight 2 x lr
+# apart; every other weight agrees to its f32 rounding (~1e-8): at most
+# 2 x lr + 1e-6 anywhere, and fewer than 1e-3 of the weights more than
+# 1e-6 apart.
+# (the module's parameters, as the reference's init; the config's analytic
+# n_params() leaves out the final norm's 960)
+TRAIN_ARCH, TRAIN_PARAMS = "smollm-360m", 409_007_040
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_DATA_SEED = 2, 4096, 1234
+TRAIN_F, TRAIN_SYNC_EVERY = 3, 5
+TRAIN_STEPS, TRAIN_CRASH_AT = 13, 8
+TRAIN_NUMERIC_SEQ = 128
+TRAIN_LOSS_RTOL, TRAIN_PARAM_OFF, TRAIN_PARAM_OFF_SHARE = 1e-4, 1e-6, 1e-3
+BF16_PEAK_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
 
 
 class SmokeFailure(RuntimeError):
@@ -2394,12 +2449,434 @@ def _serve_other_paths(np, torch, card, cfg, model, prompts, a, want):
                             launches=launched))
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training (FaultTolerantTrainer, full width)
+# ---------------------------------------------------------------------------
+def train_arch():
+    """The configuration phase 8 trains, at its published width."""
+    from repro_torch.configs import ARCHS
+
+    return ARCHS[TRAIN_ARCH]
+
+
+class _DiskPeak:
+    """While entered, a thread sums the sizes of the files under ``root``
+    every 20 ms (a backup's temp directory included) and keeps the
+    largest total."""
+
+    def __init__(self, root):
+        self.root, self.peak = root, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def size(self):
+        n = 0
+        for d, _, files in os.walk(self.root):
+            for name in files:
+                try:
+                    n += os.stat(os.path.join(d, name)).st_size
+                except FileNotFoundError:        # removed while walked
+                    pass
+        return n
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self.size())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.size())
+
+
+def _clock_steps(torch, trainer):
+    """CUDA events around each train step the trainer runs."""
+    events, step = [], trainer._train_step
+
+    def timed(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step(*args)
+        b.record()
+        events.append((a, b))
+        return out
+
+    trainer._train_step = timed
+    return events
+
+
+def _clock_journal(trainer):
+    """Host seconds each step spends recording its StepOp at the f
+    witnesses (each record opens its file, appends a line, fsyncs and
+    closes), by step: [the records, the fsyncs inside them]."""
+    spent = {}
+    for w in trainer.witnesses:
+        record = w.record
+
+        def timed(sop, record=record):
+            fsync, took = os.fsync, spent.setdefault(sop.step, [0.0, 0.0])
+
+            def timed_fsync(fd):
+                t = time.perf_counter()
+                fsync(fd)
+                took[1] += time.perf_counter() - t
+
+            os.fsync = timed_fsync
+            t = time.perf_counter()
+            try:
+                return record(sop)
+            finally:
+                took[0] += time.perf_counter() - t
+                os.fsync = fsync
+
+        w.record = timed
+    return spent
+
+
+def _journal(path):
+    """A witness's durable log: the steps it recorded, in order, and those
+    still live (recorded and not gc'd).  Read from its file, since asking
+    the witness itself for its recovery data would freeze it."""
+    recorded, live = [], set()
+    for line in path.read_text().splitlines():
+        rec = json.loads(line)
+        if rec["t"] == "record":
+            recorded.append(rec["step"])
+            live.add(rec["step"])
+        else:
+            live.difference_update(rec["steps"])
+    return recorded, sorted(live)
+
+
+def _watch_syncs(trainer):
+    """After each backup sync, no witness may hold a step the sync folded
+    in (every live step is at or past the synced step)."""
+    sync = trainer._sync_backups
+
+    def checked():
+        sync()
+        for i in range(len(trainer.witnesses)):
+            _, live = _journal(trainer.root / f"witness{i}.jsonl")
+            check(all(s >= trainer.step for s in live),
+                  f"witness {i} still holds {live} after the sync at step "
+                  f"{trainer.step}")
+
+    trainer._sync_backups = checked
+
+
+def _check_journal(trainer, name):
+    """Every witness recorded (accepted: a rejected record is not logged)
+    each step of its epoch once, in order, and holds exactly the steps
+    since the last sync."""
+    since = trainer.sync_log[-1]["step"]
+    for i in range(len(trainer.witnesses)):
+        steps, live = _journal(trainer.root / f"witness{i}.jsonl")
+        check(steps and steps == list(range(steps[0], trainer.step)),
+              f"trainer {name}: witness {i} recorded steps {steps}")
+        check(live == list(range(since, trainer.step)),
+              f"trainer {name}: witness {i} holds {live} after the sync at "
+              f"{since}")
+    return len(steps)
+
+
+def _train_flops(cfg, n_params, batch, seq):
+    """Model FLOPs of one step: 6 x the parameters that enter a product
+    (all but the embedding table) x tokens, plus attention's QK^T and PV
+    over the full S x S square (what the blockwise attention computes),
+    forward and backward; and what remat adds, one more forward."""
+    tokens = batch * seq
+    n_mm = n_params - (0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model)
+    attn_fwd = 4 * cfg.n_layers * cfg.n_heads * cfg.d_head * seq * tokens
+    return 6 * n_mm * tokens + 3 * attn_fwd, 2 * n_mm * tokens + attn_fwd
+
+
+def _train_idle(torch, trainer):
+    """One more train step (off the journal, after the digests) under the
+    profiler: device busy time against its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer.pipeline.batch_for(trainer.step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._run_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    us = _device_us(prof)
+    busy = None if us is None else us / 1e3
+    return dict(wall_ms=wall_ms, busy_ms=busy,
+                idle_share=None if busy is None else 1.0 - busy / wall_ms)
+
+
+def _corrupt_backup(trainer):
+    """Flip one byte of the newest state of the last backup replica: its
+    restore must raise IOError."""
+    rep = trainer.backups[-1]
+    step = rep.newest_step()
+    path = rep.root / f"step{step}" / "state.bin"
+    with path.open("r+b") as f:
+        f.seek(100)
+        byte = f.read(1)[0]
+        f.seek(100)
+        f.write(bytes([byte ^ 0xFF]))
+    t0 = time.perf_counter()
+    raised = False
+    try:
+        rep.restore(step)
+    except IOError:
+        raised = True
+    check(raised, f"a corrupted backup (replica {rep.replica_id}, step "
+                  f"{step}) restored without an IOError")
+    return step, time.perf_counter() - t0
+
+
+def _train_numerics(np, torch, card, cfg, device):
+    """One train step of the model's f32 twin on the card (TF32 off) and on
+    the CPU, batch 1 x TRAIN_NUMERIC_SEQ, from the same weights (drawn on
+    the CPU) and zero moments: loss, grad norm and the updated weights."""
+    from dataclasses import replace
+
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import Transformer
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    t0 = time.perf_counter()
+    cfg32 = replace(cfg, dtype="float32")
+    opt = AdamWConfig(warmup_steps=5, total_steps=1000)
+    step = make_train_step(cfg32, opt)
+    data = DataConfig(seed=TRAIN_DATA_SEED, batch=1, seq=TRAIN_NUMERIC_SEQ)
+    cpu = Transformer(cfg32, device="cpu", seed=SEED)
+    models = {"card": Transformer.from_state_dict(cfg32, cpu.state_dict(),
+                                                  device),
+              "cpu": cpu}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    metrics = {}
+    try:
+        for name, m in models.items():
+            batch = SyntheticPipeline(cfg32, data, m.device).batch_for(0)
+            _, _, got = step(m, init_opt_state(m, opt, m.device), batch)
+            metrics[name] = {k: float(v) for k, v in got.items()}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    got, want = metrics["card"], metrics["cpu"]
+    rel = {k: abs(got[k] - want[k]) / abs(want[k])
+           for k in ("loss", "grad_norm")}
+    for k, r in rel.items():
+        check(r <= TRAIN_LOSS_RTOL, f"training numerics: the f32 {k} on the "
+                                    f"card is {got[k]!r} against the CPU's "
+                                    f"{want[k]!r} ({r:.3g} relative > "
+                                    f"{TRAIN_LOSS_RTOL})")
+    lr = want["lr"]
+    worst, off, n = 0.0, 0, 0
+    card_params = dict(models["card"].named_parameters())
+    for k, p in cpu.named_parameters():
+        d = (card_params[k].detach().cpu() - p.detach()).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > TRAIN_PARAM_OFF).sum())
+        n += d.numel()
+    check(worst <= 2 * lr + TRAIN_PARAM_OFF,
+          f"training numerics: a weight on the card is {worst:.3g} from the "
+          f"CPU's after one step, more than 2 x lr ({lr:.3g}) + "
+          f"{TRAIN_PARAM_OFF}")
+    check(off / n < TRAIN_PARAM_OFF_SHARE,
+          f"training numerics: {off} of {n} weights differ by more than "
+          f"{TRAIN_PARAM_OFF}")
+    say(card, f"training {cfg.name} numerics: one step of the f32 twin at "
+              f"1 x {TRAIN_NUMERIC_SEQ} on the card (TF32 off) against the "
+              f"CPU: loss {got['loss']:.6f} vs {want['loss']:.6f} "
+              f"({rel['loss']:.3g} relative, tol {TRAIN_LOSS_RTOL}), grad "
+              f"norm {got['grad_norm']:.6f} vs {want['grad_norm']:.6f} "
+              f"({rel['grad_norm']:.3g}); updated weights at most "
+              f"{worst:.3g} apart (2 x lr = {2 * lr:.3g}), {off} of {n:,} "
+              f"more than {TRAIN_PARAM_OFF} ({time.perf_counter() - t0:.1f} "
+              f"s)")
+    return dict(card=got, cpu=want, rel=rel, max_abs_param=worst,
+                params_off=off, n_params=n)
+
+
+def _train_report(np, card, cfg, info):
+    """Phase 8's step, sync and recovery numbers from ``info`` (the runs'
+    raw measurements), printed and added to it."""
+    step_ms, sync_log = info["step_ms"], info["sync_log"]
+    p50, p99 = _pcts(np, step_ms[1:])
+    model_flops, remat_flops = _train_flops(cfg, info["n_params"],
+                                            TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    info.update(
+        step_p50=p50, step_p99=p99, tokens_per_s=tokens / (p50 / 1e3),
+        tokens_per_s_with_syncs=TRAIN_STEPS * tokens / info["a_wall"],
+        model_tflop=model_flops / 1e12, remat_tflop=remat_flops / 1e12,
+        peak_share=model_flops / (p50 / 1e3) / BF16_PEAK_FLOPS,
+        sync_p50_s=float(np.percentile([x["seconds"] for x in sync_log],
+                                       50)))
+    losses, rep = info["losses"], info["recovery"]
+    say(card, f"training {cfg.name}: {cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab:,}, {info['n_params']:,} "
+              f"parameters in {cfg.dtype}, remat, f32 moments; batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}; f = {TRAIN_F}, a sync every "
+              f"{TRAIN_SYNC_EVERY} steps (built in {info['built_s']:.1f} s)")
+    say(card, f"training: step p50 {p50:.1f} ms, p99 {p99:.1f} ms over "
+              f"steps 1-{TRAIN_STEPS - 1} (CUDA events; step 0 "
+              f"{step_ms[0]:.1f} ms); {info['tokens_per_s']:.0f} tokens/s "
+              f"at p50, {info['tokens_per_s_with_syncs']:.0f} with the "
+              f"syncs; model {info['model_tflop']:.2f} TFLOP a step "
+              f"(remat adds {info['remat_tflop']:.2f}), "
+              f"{info['peak_share']:.4f} of the dense bf16 peak at p50; peak "
+              f"CUDA memory {info['peak_cuda_bytes'] / 2**30:.2f} GiB; loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    journal = info["journal_ms"]
+    after = [journal[s] for s in range(TRAIN_SYNC_EVERY, TRAIN_STEPS,
+                                       TRAIN_SYNC_EVERY)]
+    a_syncs = sum(x["seconds"] for x in sync_log[1:TRAIN_STEPS
+                                                  // TRAIN_SYNC_EVERY + 1])
+    say(card, f"training: trainer A's {TRAIN_STEPS} steps took "
+              f"{info['a_wall']:.1f} s: steps {sum(step_ms) / 1e3:.1f} "
+              f"(CUDA events), syncs {a_syncs:.1f}, journal "
+              f"{sum(journal) / 1e3:.1f} ({TRAIN_F} fsync'd records a step: "
+              f"p50 {float(np.percentile(journal, 50)):.1f} ms, of which "
+              f"fsync p50 {float(np.percentile(info['fsync_ms'], 50)):.1f} "
+              f"ms; the first step after each sync "
+              + ", ".join(f"{x:.1f}" for x in after) + " ms)")
+    say(card, f"training: {len(sync_log)} syncs of "
+              f"{sync_log[0]['bytes'] / TRAIN_F / 1e9:.3f} GB to {TRAIN_F} "
+              f"backups ({sync_log[0]['bytes'] / 1e9:.3f} GB written a "
+              f"sync), wall s p50 {info['sync_p50_s']:.2f} (each: "
+              + ", ".join(f"{x['seconds']:.2f}" for x in sync_log)
+              + f"); peak on disk {info['peak_disk_bytes'] / 1e9:.3f} GB")
+    say(card, f"training: crash after {TRAIN_CRASH_AT} steps: restored "
+              f"step {rep['restored_step']}, replayed {rep['replayed']} "
+              f"journaled steps in {info['recover_s']:.1f} s (restore, "
+              f"replay and the sync after), trained to {TRAIN_STEPS}: "
+              f"weights and Adam moments equal the uninterrupted run's bit "
+              f"for bit; every witness accepted every step "
+              f"({info['records_per_witness']} records each after recovery) "
+              f"and held none of a synced step; a byte flipped in backup "
+              f"{TRAIN_F - 1}'s step-{info['corrupt']['step']} state raised "
+              f"IOError on restore ({info['corrupt']['restore_s']:.1f} s)")
+    return info
+
+
+def phase_training(np, torch, card, device):
+    """FaultTolerantTrainer on the card at full width (launches counted from
+    0 over this phase alone: it must launch none of the port's kernels);
+    returns the phase's numbers."""
+    from repro_torch.data import DataConfig
+    from repro_torch.ft import FTConfig, FaultTolerantTrainer
+    from repro_torch.ft.runner import state_digest
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim import AdamWConfig
+
+    kops.reset_launch_counts()
+    cfg = train_arch()
+    check(cfg.remat and cfg.dtype == "bfloat16",
+          f"{cfg.name}: remat {cfg.remat}, dtype {cfg.dtype}")
+    data = DataConfig(seed=TRAIN_DATA_SEED, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    opt = AdamWConfig(warmup_steps=5, total_steps=1000)
+    work = Path(tempfile.mkdtemp(prefix="curp_ft_"))
+
+    def trainer(name):
+        t = FaultTolerantTrainer(cfg, data, FTConfig(
+            f=TRAIN_F, sync_every=TRAIN_SYNC_EVERY,
+            workdir=str(work / name), device=device), opt)
+        _watch_syncs(t)
+        return t
+
+    try:
+        with _DiskPeak(work) as disk:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            a = trainer("a")
+            built_s = time.perf_counter() - t0
+            n_params = sum(p.numel() for p in a.params.parameters())
+            check(n_params == TRAIN_PARAMS,
+                  f"{cfg.name}: {n_params:,} parameters")
+            events = _clock_steps(torch, a)
+            journal_s = _clock_journal(a)
+            t0 = time.perf_counter()
+            a.train(TRAIN_STEPS)
+            torch.cuda.synchronize()
+            a_wall = time.perf_counter() - t0
+            peak_mem = torch.cuda.max_memory_allocated()
+            step_ms = [x.elapsed_time(y) for x, y in events]
+            losses = [m["loss"] for m in a.metrics_log]
+            check(all(np.isfinite(losses)), f"training losses {losses}")
+            _check_journal(a, "A")
+            want = (a.params_digest(), state_digest(a.opt_state))
+            sync_log = list(a.sync_log)
+            shutil.rmtree(a.root)
+            del a, events
+            torch.cuda.empty_cache()
+
+            b = trainer("b")
+            b.train(TRAIN_CRASH_AT)
+            b.crash()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            rep = b.recover()
+            torch.cuda.synchronize()
+            recover_s = time.perf_counter() - t0
+            check(rep["restored_step"] == TRAIN_SYNC_EVERY
+                  and rep["replayed"] == TRAIN_CRASH_AT - TRAIN_SYNC_EVERY,
+                  f"recovery after a crash at step {TRAIN_CRASH_AT}: {rep}")
+            b.train(TRAIN_STEPS - b.step)
+            check(b.params_digest() == want[0],
+                  "the recovered trainer's weights differ from the "
+                  "uninterrupted run's")
+            check(state_digest(b.opt_state) == want[1],
+                  "the recovered trainer's Adam moments differ from the "
+                  "uninterrupted run's")
+            records = _check_journal(b, "B")
+            corrupt_step, corrupt_s = _corrupt_backup(b)
+            sync_log += b.sync_log
+            shutil.rmtree(b.root)
+        info = _train_report(np, card, cfg, dict(
+            n_params=n_params, built_s=built_s, step_ms=step_ms,
+            a_wall=a_wall, journal_ms=[journal_s[i][0] * 1e3 for i in
+                                       range(TRAIN_STEPS)],
+            fsync_ms=[journal_s[i][1] * 1e3 for i in range(TRAIN_STEPS)],
+            losses=losses, peak_cuda_bytes=peak_mem,
+            sync_log=sync_log, peak_disk_bytes=disk.peak,
+            recover_s=recover_s, recovery=rep, records_per_witness=records,
+            corrupt=dict(step=corrupt_step, restore_s=corrupt_s)))
+        idle = info["idle"] = _train_idle(torch, b)
+        del b
+        torch.cuda.empty_cache()
+        info["numerics"] = _train_numerics(np, torch, card, cfg, device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launched = kops.launch_counts()
+    check(not any(launched.values()),
+          f"training launched the port's kernels: {launched}")
+    say(card, f"training: one step under the profiler: wall "
+              f"{idle['wall_ms']:.1f} ms, device busy "
+              + ("not measured" if idle["busy_ms"] is None else
+                 f"{idle['busy_ms']:.1f} ms, idle share "
+                 f"{idle['idle_share']:.4f}")
+              + "; none of the port's kernels launched")
+    return info
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout of the "
               "repository (src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # Deterministic cuBLAS for phase 8's bit-exact replay: read when the
+    # first cuBLAS handle is made, so set before torch is imported.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -2448,6 +2925,7 @@ def main() -> int:
     idle = run("idle", phase_idle, np, torch, dev_cluster, card)
     serve_launches, serve_info = run("serving", phase_serving, np, torch,
                                      card, "cuda")
+    train_info = run("training", phase_training, np, torch, card, "cuda")
     say(card, "wall s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in wall.items())
         + f"; total {time.perf_counter() - t0:.1f}")
@@ -2465,6 +2943,7 @@ def main() -> int:
         card=card, kernels=kernels, slice=slice_info, table_path=table_info,
         txn=txn_info, txn_launches=txn_launches, times=times, idle=idle,
         serving=serve_info, serving_launches=serve_launches,
+        training=train_info,
         wall_s=wall,
         ptxas=build.ptxas_reports()), indent=1, default=str))
     print(card)

@@ -6,6 +6,8 @@ on axis 0 (its ``init_params`` builds them with ``jax.vmap`` so that
 ``params_from_jax`` unstacks them: ``layers/attn/wq[i]`` becomes
 ``blocks.{i}.attn.wq``.  Every other leaf keeps its path with dots.  With
 ``tie_embeddings`` neither side holds a head: both read ``embed.T``.
+``opt_state_from_jax`` carries the optimizer state across the same way
+(its moments are trees shaped like the parameters).
 """
 from __future__ import annotations
 
@@ -51,3 +53,15 @@ def params_from_jax(cfg: ModelConfig,
         for i in range(cfg.n_layers):
             state[f"blocks.{i}.{path}"] = _tensor(stacked[i])
     return state
+
+
+def opt_state_from_jax(cfg: ModelConfig,
+                       opt_np: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's AdamW state (``{"m": tree, "v": tree, "step":
+    int32}`` of numpy arrays) as the port's (``{"m": {name: tensor}, "v":
+    {name: tensor}, "step": int32 tensor}``, CPU tensors, same dtypes)."""
+    return {
+        "m": params_from_jax(cfg, opt_np["m"]),
+        "v": params_from_jax(cfg, opt_np["v"]),
+        "step": _tensor(np.asarray(opt_np["step"], np.int32)),
+    }

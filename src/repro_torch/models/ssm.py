@@ -21,10 +21,23 @@ from .layers import Init
 from .shardctx import constrain
 
 
+def cumsum_last(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis in log2(q) shifted adds (a
+    Hillis-Steele scan).  Elementwise adds only, so it rounds the same way
+    on every run and device; ``torch.cumsum`` of floats on CUDA makes no
+    such promise and raises under ``torch.use_deterministic_algorithms``,
+    which bit-exact training replay needs."""
+    q, k = x.shape[-1], 1
+    while k < q:
+        x = torch.cat([x[..., :k], x[..., k:] + x[..., :-k]], dim=-1)
+        k *= 2
+    return x
+
+
 def segsum(x: torch.Tensor) -> torch.Tensor:
     """[..., q] -> [..., q, q] lower-triangular segment sums."""
     q = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
+    cs = cumsum_last(x)
     d = cs[..., :, None] - cs[..., None, :]
     i = torch.arange(q, device=x.device)
     mask = i[:, None] >= i[None, :]
@@ -51,7 +64,7 @@ def ssd_chunked(
     Cm = Cm.reshape(b, c, chunk, g, n).repeat_interleave(rep, dim=3)
 
     A = A.float()
-    A_cs = torch.cumsum(A, dim=-1)                           # [b,h,c,q]
+    A_cs = cumsum_last(A)                                    # [b,h,c,q]
 
     # 1. intra-chunk (diagonal blocks): quadratic "attention" form
     L = torch.exp(segsum(A))                                 # [b,h,c,q,q]

@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Mapping, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (
@@ -125,9 +126,15 @@ class Transformer(nn.Module):
         cast to the config's dtype), with no random draw."""
         device = resolve_device(device)
         model = cls(cfg, device="meta").to_empty(device=device)
-        model.device = device
         model.load_state_dict(state, strict=True)
         return model
+
+    def to_empty(self, *, device, recurse: bool = True) -> "Transformer":
+        """``nn.Module.to_empty`` that also moves ``device``."""
+        device = resolve_device(device)
+        super().to_empty(device=device, recurse=recurse)
+        self.device = device
+        return self
 
     def head(self) -> torch.Tensor:
         """[D, V]: the LM head, or ``embed.T`` when embeddings are tied."""
@@ -186,9 +193,22 @@ def forward(
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, blk in enumerate(params.blocks):
-        x, a = _block_train(cfg, blk, x, positions, cfg.layer_is_global(i))
-        aux_total = aux_total + a
+    # Activation checkpointing where the reference wraps _block_train in
+    # jax.checkpoint: every layer of a scan segment (a "single" segment's
+    # layer runs plain there too).  Backward recomputes the block's forward,
+    # op for op, so the gradients are those of the plain run, bit for bit.
+    remat = cfg.remat and torch.is_grad_enabled()
+    for kind, s, e in segments(cfg):
+        for i in range(s, e):
+            args = (cfg, params.blocks[i], x, positions,
+                    cfg.layer_is_global(i))
+            if remat and kind == "scan":
+                # the block draws no random numbers: no RNG state to keep
+                x, a = checkpoint(_block_train, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = _block_train(*args)
+            aux_total = aux_total + a
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = constrain(x @ params.head(), "logits")
     return logits, aux_total

@@ -6,11 +6,18 @@ each kernel is built from ``src/repro_torch/kernels/csrc`` and must agree bit
 for bit with its plain version on identical inputs; ``chip_smoke.py`` does
 the same at full size.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import parity
+
+# Deterministic cuBLAS for the trainer's bit-exact replay, set before the
+# process's first CUDA product (collection imports this module before any
+# test runs).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 pytestmark = pytest.mark.gpu
 
@@ -342,3 +349,44 @@ def test_reduced_decode_on_the_card_matches_the_cpu(cuda):
     before = ops.GANG_FASTPATH.launches
     assert serve(cuda, card) == serve("cpu", cpu)
     assert ops.GANG_FASTPATH.launches >= before + 6
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "hymba-1.5b"])
+def test_reduced_trainer_recovers_bit_exact_on_the_card(cuda, arch,
+                                                        tmp_path):
+    """A reduced trainer on the card (a dense model; a hybrid with SSM
+    scans and single layers) trains 8 steps, crashes, restores the step-5
+    backup, replays 3 journaled steps and trains to 13: its parameters
+    and moments equal the uninterrupted run's bit for bit, and its losses
+    are the CPU trainer's within 1e-4 relative (f32, TF32 off, sums in
+    other orders)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig
+    from repro_torch.ft import FTConfig, FaultTolerantTrainer
+    from repro_torch.ft.runner import state_digest
+    from repro_torch.models import Transformer, reduced
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(ARCHS[arch])
+    weights = Transformer(cfg, device="cpu", seed=2).state_dict()
+
+    def trainer(name, device):
+        return FaultTolerantTrainer(
+            cfg, DataConfig(batch=2, seq=32),
+            FTConfig(f=3, sync_every=5, workdir=tmp_path / name,
+                     device=device),
+            params=Transformer.from_state_dict(cfg, weights, device))
+
+    a, b, c = trainer("a", cuda), trainer("b", cuda), trainer("c", "cpu")
+    a.train(13)
+    c.train(13)
+    b.train(8)
+    b.crash()
+    rep = b.recover()
+    assert rep["restored_step"] == 5 and rep["replayed"] == 3
+    b.train(13 - b.step)
+    assert b.params_digest() == a.params_digest()
+    assert state_digest(b.opt_state) == state_digest(a.opt_state)
+    assert a.params.embed.device.type == "cuda"
+    np.testing.assert_allclose([m["loss"] for m in a.metrics_log],
+                               [m["loss"] for m in c.metrics_log], rtol=1e-4)

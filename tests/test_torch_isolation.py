@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+# Deterministic cuBLAS for the trainer on the card (before any product).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
@@ -22,6 +25,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.kernels.parity, repro_torch.sim\n"
         "import repro_torch.models, repro_torch.models.convert\n"
         "import repro_torch.configs, repro_torch.serving\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.ft\n"
+        "import repro_torch.launch, repro_torch.launch.train\n"
+        "import repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -121,6 +127,56 @@ def test_serving_entry_runs_on_the_card_by_default(name):
     call = _serving_entries()[name]
     if torch.cuda.is_available():
         tensors = _tensors_of(call())
+        assert tensors and all(t.device.type == "cuda" for t in tensors)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
+
+
+def _training_entries(tmp):
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.ft import FTConfig, FaultTolerantTrainer
+    from repro_torch.models import Transformer, reduced
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    cfg = reduced(ARCHS["smollm-360m"])
+    return {
+        "FaultTolerantTrainer": lambda: FaultTolerantTrainer(
+            cfg, DataConfig(batch=1, seq=8), FTConfig(f=1, workdir=tmp)),
+        "SyntheticPipeline.batch_for": lambda: SyntheticPipeline(
+            cfg, DataConfig(batch=1, seq=8)).batch_for(0),
+        "init_opt_state": lambda: init_opt_state(
+            Transformer(cfg, device="cuda" if torch.cuda.is_available()
+                        else "cpu"), AdamWConfig()),
+    }
+
+
+def _training_tensors(out):
+    from repro_torch.ft import FaultTolerantTrainer
+
+    if isinstance(out, FaultTolerantTrainer):
+        return (list(out.params.parameters())
+                + list(out.opt_state["m"].values()) + [out.opt_state["step"]])
+    if "m" in out:
+        return list(out["m"].values()) + [out["step"]]
+    return list(out.values())
+
+
+@pytest.mark.parametrize("name", ["FaultTolerantTrainer",
+                                  "SyntheticPipeline.batch_for",
+                                  "init_opt_state"])
+def test_training_entry_runs_on_the_card_by_default(name, tmp_path):
+    """The training path's entry points, given no device (``FTConfig``
+    names "cuda" by default, for the model, its optimizer state and its
+    batches), land on the card; without one they raise rather than
+    falling back to the CPU."""
+    from repro_torch.ft import FTConfig
+
+    assert FTConfig().device == "cuda"
+    call = _training_entries(tmp_path)[name]
+    if torch.cuda.is_available():
+        tensors = _training_tensors(call())
         assert tensors and all(t.device.type == "cuda" for t in tensors)
     else:
         with pytest.raises(RuntimeError, match="CUDA device"):
