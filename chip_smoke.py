@@ -213,6 +213,29 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    sync's wall time and bytes, the peak bytes on disk, the recovery's
    time and the device's idle share over one profiled step.
 
+9. The sharded step (run last; launches counted from 0 over this phase
+   alone, and it must launch none of the port's kernels), on a
+   world-size-1 NCCL group and a 1 x 1 ("data", "model") mesh from
+   ``repro_torch.launch.mesh.make_mesh_from``: (a) llama3.2-1b at its
+   published width, bf16, every parameter, Adam moment and batch tensor a
+   DTensor laid out by ``param_specs`` (``launch.sharding``), the "tp"
+   rules of train_4k installed (``heads_are_tp``, so the flat-heads
+   blockwise attention runs: its calls are counted), batch 2 x 4096: one
+   train step held against the same step on plain tensors with no rules
+   from the same weights (loss within ``SHARD_LOSS_RTOL``, global grad
+   norm within ``SHARD_GNORM_RTOL``), then the step p50 of both (CUDA
+   events), peak CUDA memory, and the dry run's bound for the same cell
+   at 1 x 1 with the H100's constants (``launch.dryrun`` in a process of
+   its own); (b) qwen2-moe-a2.7b at its published width (14.3 B
+   parameters in bf16) under "moe_ep": forward and loss at 1 x 4096 under
+   no_grad, every MoE through ``moe_mlp_shardmap`` on NCCL's all-to-all
+   (calls counted), the first MoE layer's routed output bit-equal to the
+   factored local body with identity collectives on the same local
+   tensors, the loss finite, the forward's ms and peak memory; (c)
+   ``torchrun --standalone --nproc_per_node 1 -m repro_torch.launch.train
+   --distributed --smoke`` with a sync and a crash, its digest equal to the
+   same run without ``--distributed``.
+
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``;
 the line before them names the card and its power limit.  Details also go
 to ``chiprun_out/chip_smoke.json``.
@@ -295,6 +318,26 @@ TRAIN_STEPS, TRAIN_CRASH_AT = 13, 8
 TRAIN_NUMERIC_SEQ = 128
 TRAIN_LOSS_RTOL, TRAIN_PARAM_OFF, TRAIN_PARAM_OFF_SHARE = 1e-4, 1e-6, 1e-3
 BF16_PEAK_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
+# The sharded step (phase 9), on a world-size-1 NCCL group and a 1 x 1
+# ("data", "model") mesh.  (a) llama3.2-1b at its published width, bf16,
+# parameters DTensors by param_specs, the "tp" rules of train_4k (so
+# heads_are_tp and the flat-heads attention), batch cut to 2 x 4096: one
+# train step held against the same step on plain tensors with no rules.
+# The flat and grouped attentions run other einsum shapes (other cuBLAS
+# kernels, f32 accumulation both), so bf16 activations may differ by an
+# ulp (2^-8) here and there; over 16 layers the mean loss over 8192 tokens
+# (about ln 128256 = 11.8) moves by well under 2e-3 relative, and the
+# global grad norm, a sum of squares of every gradient, by under 2e-2.
+# (b) qwen2-moe-a2.7b at its published width (14.3 B parameters, 28.6 GB
+# in bf16), "moe_ep": forward and loss at 1 x 4096 under no_grad (a train
+# step's f32 moments alone would take 114 GB).  (c) the train launcher
+# under torchrun at one process with --distributed against the same run
+# without it.
+SHARD_ARCH, SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = "llama3.2-1b", 2, 4096, 4
+SHARD_LOSS_RTOL, SHARD_GNORM_RTOL = 2e-3, 2e-2
+SHARD_MOE_ARCH, SHARD_MOE_SEQ = "qwen2-moe-a2.7b", 4096
+SHARD_LAUNCH_FLAGS = ("--smoke", "--steps", "8", "--sync-every", "3",
+                      "--crash-at", "5")
 
 
 class SmokeFailure(RuntimeError):
@@ -2868,6 +2911,343 @@ def phase_training(np, torch, card, device):
     return info
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the sharded step (DTensor on a 1 x 1 mesh over NCCL)
+# ---------------------------------------------------------------------------
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _whole(t):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _timed_steps(torch, run):
+    """CUDA events around each of SHARD_STEPS calls of ``run``: ms each."""
+    times = []
+    for _ in range(SHARD_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        times.append((a, b))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in times]
+
+
+def _counting(module, name, counts):
+    """Wrap ``module.name`` so that each call adds one to ``counts[name]``;
+    returns a function that puts the original back."""
+    fn = getattr(module, name)
+
+    def counted(*a, **k):
+        counts[name] = counts.get(name, 0) + 1
+        return fn(*a, **k)
+
+    setattr(module, name, counted)
+    return lambda: setattr(module, name, fn)
+
+
+def shard_arch(name):
+    """A configuration phase 9 runs, at its published width."""
+    from repro_torch.configs import ARCHS
+
+    return ARCHS[name]
+
+
+def _sharded_train(np, torch, card, mesh, device):
+    """(a): one train step of llama3.2-1b at full width on plain tensors
+    (no rules), then the same step from the same weights with every
+    parameter, moment and batch tensor a DTensor under the "tp" rules;
+    then SHARD_STEPS more sharded steps, timed."""
+    from repro_torch.configs import SHAPES, ShapeSpec, concrete_batch
+    from repro_torch.launch import dryrun, make_train_step
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import Transformer
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models.shardctx import activation_sharding, heads_are_tp
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    cfg = shard_arch(SHARD_ARCH)
+    opt = AdamWConfig(warmup_steps=5, total_steps=1000)
+    step = make_train_step(cfg, opt)
+    batch = concrete_batch(cfg, "train", SHARD_BATCH, SHARD_SEQ, seed=SEED,
+                           device=device)
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=device, seed=SEED)
+    ostate = init_opt_state(model, opt, device)
+    _, _, plain = step(model, ostate, batch)
+    plain = {k: float(v) for k, v in plain.items()}
+    plain_ms = _timed_steps(torch, lambda: step(model, ostate, batch))
+    del model, ostate
+    torch.cuda.empty_cache()
+
+    shape = SHAPES["train_4k"]
+    sizes = sh.axis_sizes(mesh)
+    model = Transformer(cfg, device=device, seed=SEED)
+    named = dict(model.named_parameters())
+    pspec = sh.sanitize_specs(sh.state_specs(cfg, sh.param_specs(
+        cfg, tp=sizes["model"])), named, sizes)
+    ostate = init_opt_state(model, opt, device)
+    sh.distribute_model(model, mesh, pspec)
+    ostate = sh.distribute_tree(mesh, ostate, sh.opt_specs(pspec))
+    bspec = sh.sanitize_specs(sh.batch_pspecs(
+        cfg, shape, multi_pod=False, with_labels=True, n_dev=mesh.size()),
+        batch, sizes)
+    dbatch = sh.distribute_tree(mesh, batch, bspec)
+    rules = sh.activation_rules(cfg, shape, mesh, multi_pod=False,
+                                strategy="tp")
+    counts = {}
+    restore = _counting(mlayers, "_sdpa_blockwise_flat", counts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    try:
+        with activation_sharding(rules):
+            check(heads_are_tp(), "the tp rules leave heads_are_tp false")
+            _, _, got = step(model, ostate, dbatch)
+            got = {k: float(_whole(v)) for k, v in got.items()}
+            first_calls = counts.get("_sdpa_blockwise_flat", 0)
+            step_ms = _timed_steps(
+                torch, lambda: metrics.append(step(model, ostate, dbatch)[2]))
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    loss_final = float(_whole(metrics[-1]["loss"]))
+    check(np.isfinite(loss_final), f"sharded {cfg.name}: loss {loss_final}")
+    check(first_calls >= cfg.n_layers,
+          f"sharded {cfg.name}: the flat-heads attention ran "
+          f"{first_calls} times in a step of {cfg.n_layers} layers")
+    rel = {k: abs(got[k] - plain[k]) / abs(plain[k])
+           for k in ("loss", "grad_norm")}
+    check(rel["loss"] <= SHARD_LOSS_RTOL,
+          f"sharded {cfg.name}: loss {got['loss']!r} against the plain "
+          f"step's {plain['loss']!r} ({rel['loss']:.3g} > "
+          f"{SHARD_LOSS_RTOL})")
+    check(rel["grad_norm"] <= SHARD_GNORM_RTOL,
+          f"sharded {cfg.name}: grad norm {got['grad_norm']!r} against the "
+          f"plain step's {plain['grad_norm']!r} ({rel['grad_norm']:.3g} > "
+          f"{SHARD_GNORM_RTOL})")
+    del model, ostate, dbatch, batch
+    torch.cuda.empty_cache()
+    cut = ShapeSpec("train_4k", "train", SHARD_SEQ, SHARD_BATCH)
+    rec = dryrun.run_cell_isolated(SHARD_ARCH, cut, (1, 1), "1x1",
+                                   strategy="tp")
+    check(rec.get("status") == "ok", f"dry run of {cfg.name}: {rec}")
+    p50 = float(np.percentile(step_ms, 50))
+    plain_p50 = float(np.percentile(plain_ms, 50))
+    built = time.perf_counter() - t0
+    terms = rec["terms"]
+    say(card, f"sharded {cfg.name} (a): {cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, bf16, "
+              f"batch {SHARD_BATCH} x {SHARD_SEQ}, every parameter, moment "
+              f"and batch tensor a DTensor on the 1 x 1 mesh, the tp rules "
+              f"of train_4k: heads_are_tp, the flat-heads attention "
+              f"{first_calls} calls a step; loss {got['loss']:.6f} vs the "
+              f"plain step's {plain['loss']:.6f} ({rel['loss']:.3g} "
+              f"relative, tol {SHARD_LOSS_RTOL}), grad norm "
+              f"{got['grad_norm']:.6f} vs {plain['grad_norm']:.6f} "
+              f"({rel['grad_norm']:.3g}, tol {SHARD_GNORM_RTOL})")
+    say(card, f"sharded {cfg.name} (a): step p50 {p50:.1f} ms over "
+              f"{SHARD_STEPS} steps (CUDA events; each: "
+              + ", ".join(f"{x:.1f}" for x in step_ms)
+              + f"); the plain step's p50 {plain_p50:.1f} ms (each: "
+              + ", ".join(f"{x:.1f}" for x in plain_ms)
+              + f"); peak CUDA memory {peak / 2**30:.2f} GiB; the dry run's "
+              f"bound for this cell at 1 x 1 (H100 constants): "
+              f"{terms['bound_step_s'] * 1e3:.1f} ms ({terms['dominant']}: "
+              f"compute {terms['compute_s'] * 1e3:.1f}, memory "
+              f"{terms['memory_s'] * 1e3:.1f}, collective "
+              f"{terms['collective_s'] * 1e3:.1f} ms; "
+              f"{rec['flops_per_device'] / 1e12:.2f} TFLOP counted), "
+              f"measured / bound {p50 / (terms['bound_step_s'] * 1e3):.1f}x "
+              f"({built:.1f} s)")
+    return dict(plain=plain, sharded=got, rel=rel, flat_calls=first_calls,
+                step_ms=step_ms, step_p50=p50, plain_step_ms=plain_ms,
+                plain_step_p50=plain_p50, peak_cuda_bytes=peak, dryrun=rec)
+
+
+def _sharded_moe(np, torch, card, mesh, device):
+    """(b): qwen2-moe-a2.7b at full width under "moe_ep": forward and loss
+    at 1 x SHARD_MOE_SEQ under no_grad, every MoE through the shard_map
+    dispatch on NCCL's all-to-all; the first MoE layer's routed output
+    against the factored local body with identity collectives, on the
+    same local tensors, bit for bit (deterministic algorithms on)."""
+    from repro_torch.configs import SHAPES, concrete_batch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import Transformer, loss_fn
+    from repro_torch.models import moe as pmoe
+    from repro_torch.models.shardctx import activation_sharding
+
+    cfg = shard_arch(SHARD_MOE_ARCH)
+    check(cfg.moe_dispatch == "capacity" and cfg.n_experts % mesh.size()
+          == 0, f"{cfg.name}: dispatch {cfg.moe_dispatch}")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=device, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    sizes = sh.axis_sizes(mesh)
+    shape = SHAPES["train_4k"]
+    sh.distribute_model(model, mesh, sh.sanitize_specs(sh.state_specs(
+        cfg, sh.param_specs(cfg, tp=sizes["model"])),
+        dict(model.named_parameters()), sizes))
+    batch = concrete_batch(cfg, "train", 1, SHARD_MOE_SEQ, seed=SEED,
+                           device=device)
+    dbatch = sh.distribute_tree(mesh, batch, sh.sanitize_specs(
+        sh.batch_pspecs(cfg, shape, multi_pod=False, with_labels=True,
+                        n_dev=mesh.size()), batch, sizes))
+    rules = sh.activation_rules(cfg, shape, mesh, multi_pod=False,
+                                strategy="moe_ep")
+    counts, first = {}, []
+    local = pmoe.moe_ep_local
+
+    def recording(*args):
+        out = local(*args)
+        if not first:
+            first.append((args, out))
+        return out
+
+    restores = [_counting(pmoe, "moe_mlp_shardmap", counts),
+                _counting(pmoe.MeshComm, "_a2a", counts)]
+    pmoe.moe_ep_local = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.no_grad(), activation_sharding(rules):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss, aux = loss_fn(cfg, model, dbatch)
+            b.record()
+            torch.cuda.synchronize()
+            args, (out, aux_l) = first[0]
+            want, want_aux = local(*args[:-1], pmoe.IdentityComm())
+    finally:
+        torch.use_deterministic_algorithms(det)
+        pmoe.moe_ep_local = local
+        for r in restores:
+            r()
+    fwd_ms = a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(_whole(loss))
+    check(np.isfinite(loss), f"{cfg.name} under moe_ep: loss {loss}")
+    check(counts.get("moe_mlp_shardmap") == cfg.n_layers,
+          f"{cfg.name}: the shard_map dispatch ran "
+          f"{counts.get('moe_mlp_shardmap')} times for {cfg.n_layers} "
+          f"layers")
+    check(counts.get("_a2a") == 2 * cfg.n_layers,
+          f"{cfg.name}: {counts.get('_a2a')} all-to-alls for "
+          f"{cfg.n_layers} layers")
+    check(torch.equal(out, want) and torch.equal(aux_l, want_aux),
+          f"{cfg.name}: the first MoE layer's shard_map output differs from "
+          f"its local body with identity collectives (max "
+          f"{float((out.float() - want.float()).abs().max())})")
+    say(card, f"sharded {cfg.name} (b): {cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k} of "
+              f"d_ff {cfg.moe_d_ff}, {cfg.n_shared_experts} shared; "
+              f"{n_params:,} parameters in bf16 as DTensors, the moe_ep "
+              f"rules: forward and loss at 1 x {SHARD_MOE_SEQ} in "
+              f"{fwd_ms:.1f} ms (CUDA events, no_grad), peak CUDA memory "
+              f"{peak / 2**30:.2f} GiB; the shard_map dispatch ran "
+              f"{counts['moe_mlp_shardmap']} times on NCCL's all-to-all "
+              f"({counts['_a2a']} calls), its first layer bit-equal to the "
+              f"local body with identity collectives; loss {loss:.6f} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    del model, dbatch, batch, first, args
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, forward_ms=fwd_ms, peak_cuda_bytes=peak,
+                loss=loss, shardmap_calls=counts["moe_mlp_shardmap"],
+                all_to_all_calls=counts["_a2a"])
+
+
+def _sharded_launch(card, device):
+    """(c): the train launcher under torchrun at one process with
+    --distributed, against the same run without it: equal digests."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    work = Path(tempfile.mkdtemp(prefix="curp_launch_"))
+    out = {}
+    t0 = time.perf_counter()
+    runs = {
+        "distributed": [sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc_per_node", "1", "-m",
+                        "repro_torch.launch.train", "--distributed"],
+        "one process": [sys.executable, "-m", "repro_torch.launch.train"]}
+    procs = {}
+    try:
+        # both at once: each is one small trainer, deterministic alone; each
+        # in a session of its own, so that torchrun's worker dies with it
+        for name, pre in runs.items():
+            procs[name] = subprocess.Popen(
+                pre + ["--workdir", str(work / name.replace(" ", "_")),
+                       "--device", device] + list(SHARD_LAUNCH_FLAGS),
+                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, start_new_session=True)
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            check(proc.returncode == 0,
+                  f"train launcher ({name}) exited {proc.returncode}: "
+                  f"{stderr[-1500:]}")
+            digests = [ln.split("digest ")[1] for ln in stdout.splitlines()
+                       if "digest " in ln]
+            check(len(digests) == 1, f"train launcher ({name}): "
+                                     f"{stdout[-1500:]}")
+            out[name] = digests[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    check(out["distributed"] == out["one process"],
+          f"train launcher: digest {out['distributed']} under torchrun "
+          f"--distributed, {out['one process']} without")
+    say(card, f"sharded (c): torchrun --standalone --nproc_per_node 1 -m "
+              f"repro_torch.launch.train --distributed "
+              f"{' '.join(SHARD_LAUNCH_FLAGS)}: digest {out['distributed']}, "
+              f"equal to the run without --distributed "
+              f"({time.perf_counter() - t0:.1f} s, both at once)")
+    return out
+
+
+def phase_sharded(np, torch, card, device):
+    """Phase 9 (launches counted from 0 over this phase alone; it must
+    launch none of the port's kernels): NCCL on the card, gloo on the
+    CPU (a rehearsal)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_mesh_from
+
+    kops.reset_launch_counts()
+    if device == "cuda":
+        torch.cuda.set_device(0)    # the device NCCL and the mesh use
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh_from((1, 1), ("data", "model"), device_type=device)
+        info = dict(train=_sharded_train(np, torch, card, mesh, device),
+                    moe=_sharded_moe(np, torch, card, mesh, device))
+    finally:
+        dist.destroy_process_group()
+    info["launch"] = _sharded_launch(card, device)
+    launched = kops.launch_counts()
+    check(not any(launched.values()),
+          f"the sharded step launched the port's kernels: {launched}")
+    say(card, "sharded: none of the port's kernels launched")
+    return info
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout of the "
@@ -2926,6 +3306,7 @@ def main() -> int:
     serve_launches, serve_info = run("serving", phase_serving, np, torch,
                                      card, "cuda")
     train_info = run("training", phase_training, np, torch, card, "cuda")
+    shard_info = run("sharded", phase_sharded, np, torch, card, "cuda")
     say(card, "wall s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in wall.items())
         + f"; total {time.perf_counter() - t0:.1f}")
@@ -2943,7 +3324,7 @@ def main() -> int:
         card=card, kernels=kernels, slice=slice_info, table_path=table_info,
         txn=txn_info, txn_launches=txn_launches, times=times, idle=idle,
         serving=serve_info, serving_launches=serve_launches,
-        training=train_info,
+        training=train_info, sharded=shard_info,
         wall_s=wall,
         ptxas=build.ptxas_reports()), indent=1, default=str))
     print(card)

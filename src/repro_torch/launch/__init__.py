@@ -1,6 +1,8 @@
-"""repro_torch.launch — step builders and the single-process launchers (the
-port of ``repro.launch``'s steps, ``train`` and ``serve``; its meshes,
-sharding rules and dry-run come with the multi-card slice)."""
+"""repro_torch.launch — step builders, the launchers (``train``, with
+``--distributed`` under torchrun, and ``serve``), device meshes
+(``mesh``), the sharding rules on DTensor (``sharding``) and the dry run
+(``dryrun``, ``hlo_analysis``): the port of ``repro.launch``.  The mesh,
+sharding and dry-run modules are imported by name, not here."""
 from .steps import make_prefill_step, make_serve_step, make_train_step
 
 __all__ = ["make_train_step", "make_prefill_step", "make_serve_step"]

@@ -12,6 +12,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..models.config import ModelConfig
+from ..models.shardctx import gathered
 from ..models.transformer import Transformer, decode_step, forward, loss_fn
 from ..optim import AdamWConfig, adamw_update
 
@@ -48,7 +49,9 @@ def make_prefill_step(cfg: ModelConfig):
 def make_serve_step(cfg: ModelConfig):
     def serve_step(params: Transformer, batch: Dict, cache: Dict):
         logits, new_cache = decode_step(cfg, params, batch, cache)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        # tokens come out replicated: a vocab-sharded DTensor's logits are
+        # gathered first (the identity on one device)
+        next_tok = torch.argmax(gathered(logits), dim=-1).to(torch.int32)
         return next_tok, new_cache
 
     return serve_step

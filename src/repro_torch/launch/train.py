@@ -6,8 +6,17 @@
 The torch port of ``repro.launch.train``, with its flags and printout plus
 ``--device`` ("cuda" by default; it raises without a card).  --smoke runs
 the reduced config; without it the full config trains on one device.
-A multi-process launch (--distributed) needs the port's device mesh, which
-is not there yet, so it stops with a message instead of training alone.
+
+--distributed joins a multi-process launch from torchrun's environment
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``):
+NCCL on ``cuda:{LOCAL_RANK}``, gloo with ``--device cpu``.  Then each rank
+runs the same trainer as without the flag (the reference does no more
+than ``jax.distributed.initialize()``).  With more than one rank each
+rank's --workdir gets a ``rank{r}`` suffix, so ranks on one host do not
+share witness and backup files.  The group is destroyed at exit.
+
+    torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.train \
+        --distributed --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -37,18 +46,47 @@ def main() -> None:
     ap.add_argument("--device", default="cuda",
                     help="where the model trains: cuda (default) or cpu")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process launch (not ported yet)")
+                    help="multi-process launch under torchrun")
     args = ap.parse_args()
 
-    if args.distributed:
-        raise SystemExit(
-            "--distributed: the multi-process launch needs the port's device "
-            "mesh and sharding rules, which are not ported yet (ROADMAP.md, "
-            "queue 1, item 5); run one process per card without it")
     # Deterministic cuBLAS for bit-exact replay, set before the first
     # CUDA product creates a handle.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if not args.distributed:
+        train(args)
+        return
+    import torch.distributed as dist
 
+    rank, world = init_distributed(args.device)
+    try:
+        if world > 1:
+            args.workdir = os.path.join(args.workdir, f"rank{rank}")
+        train(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def init_distributed(device: str):
+    """Join the process group torchrun describes; returns (rank, world
+    size).  A launch without torchrun's environment raises."""
+    import torch
+    import torch.distributed as dist
+
+    missing = [k for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+               if k not in os.environ]
+    if missing:
+        raise SystemExit(f"--distributed: {', '.join(missing)} not set; "
+                         f"launch under torchrun")
+    if device == "cpu":
+        backend = "gloo"
+    else:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        backend = "nccl"
+    dist.init_process_group(backend)
+    return dist.get_rank(), dist.get_world_size()
+
+
+def train(args) -> None:
     from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig
     from repro_torch.ft import FTConfig, FaultTolerantTrainer

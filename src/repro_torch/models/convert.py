@@ -11,7 +11,7 @@ on axis 0 (its ``init_params`` builds them with ``jax.vmap`` so that
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -35,24 +35,39 @@ def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, Any]):
             out[path] = v
 
 
+def unstack_layers(cfg: ModelConfig, tree: Mapping[str, Any],
+                   top: Callable[[Any], Any],
+                   layer: Callable[[Any, int], Any]) -> Dict[str, Any]:
+    """A tree in the reference's nesting (``tree["layers"]`` stacked over
+    the layers) as a dict by the port's state-dict names: ``top(leaf)`` for
+    every leaf outside ``layers``, ``layer(leaf, i)`` as
+    ``blocks.{i}.<path>`` for each layer ``i`` of a stacked one.  The
+    weights (``params_from_jax``) and the sharding specs
+    (``launch.sharding.state_specs``) cross by this one walk."""
+    flat: Dict[str, Any] = {}
+    _flatten({k: v for k, v in tree.items() if k != "layers"}, "", flat)
+    state = {k: top(v) for k, v in flat.items()}
+    layers: Dict[str, Any] = {}
+    _flatten(tree["layers"], "", layers)
+    for path, stacked in layers.items():
+        for i in range(cfg.n_layers):
+            state[f"blocks.{i}.{path}"] = layer(stacked, i)
+    return state
+
+
 def params_from_jax(cfg: ModelConfig,
                     params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The reference's parameter pytree (nested dicts of numpy arrays) as
     the port's state dict (CPU tensors, same dtypes); load it with
     ``Transformer.from_state_dict(cfg, state, device)``."""
-    flat: Dict[str, Any] = {}
-    _flatten({k: v for k, v in params_np.items() if k != "layers"}, "", flat)
-    state = {k: _tensor(v) for k, v in flat.items()}
-    layers: Dict[str, Any] = {}
-    _flatten(params_np["layers"], "", layers)
-    for path, stacked in layers.items():
+    def layer(stacked, i):
         stacked = np.asarray(stacked)
         if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers.{path}: {stacked.shape[0]} layers "
-                             f"stacked, the config has {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            state[f"blocks.{i}.{path}"] = _tensor(stacked[i])
-    return state
+            raise ValueError(f"layers: {stacked.shape[0]} layers stacked, "
+                             f"the config has {cfg.n_layers}")
+        return _tensor(stacked[i])
+
+    return unstack_layers(cfg, params_np, _tensor, layer)
 
 
 def opt_state_from_jax(cfg: ModelConfig,

@@ -19,7 +19,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .shardctx import constrain
+from .shardctx import (
+    constrain,
+    heads_are_tp,
+    merge_dims,
+    split_dim,
+    write_rows_,
+)
 
 
 class Init:
@@ -99,7 +105,7 @@ def apply_mrope(
     freqs = rope_freqs(x.shape[-1], theta, x.device)      # [half]
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))
+        torch.tensor(sections, device=x.device), output_size=half)
     pos_sel = torch.movedim(pos3[sec_id], 0, -1)          # [B, S, half]
     return _rotate(x, pos_sel.float() * freqs)
 
@@ -132,10 +138,9 @@ class Attention(nn.Module):
 
 
 def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor):
-    B, S, _ = x.shape
-    q = (x @ p.wq).reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = (x @ p.wk).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    v = (x @ p.wv).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    q = split_dim(x @ p.wq, -1, (cfg.n_heads, cfg.d_head))
+    k = split_dim(x @ p.wk, -1, (cfg.n_kv_heads, cfg.d_head))
+    v = split_dim(x @ p.wv, -1, (cfg.n_kv_heads, cfg.d_head))
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
@@ -146,16 +151,19 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
     """q: [B,S,Hq,dh]; k,v: [B,T,Hkv,dh]; mask: [B,1,S,T] or broadcastable.
 
     Grouped GQA form (no KV head repeat): scores in f32, masked with -1e30,
-    softmax in f32, probabilities cast to q's type for the PV product."""
-    B, S, Hq, dh = q.shape
-    Hkv = k.shape[2]
-    qg = q.reshape(B, S, Hkv, Hq // Hkv, dh)
-    scale = 1.0 / math.sqrt(dh)
+    softmax in f32, probabilities cast to q's type for the PV product.  The
+    scores constraint keeps the T axis sharded under decode rules; softmax
+    and the PV contraction then become partial reductions."""
+    Hq, Hkv = q.shape[2], k.shape[2]
+    qg = split_dim(q, 2, (Hkv, Hq // Hkv))
+    scale = 1.0 / math.sqrt(q.shape[3])
     logits = torch.einsum("bsgrd,btgd->bgrst", qg, k).float() * scale
+    logits = constrain(logits, "scores5")             # [B,G,rep,S,T]
     logits = torch.where(mask[:, :, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = constrain(probs, "scores5")               # stay T-sharded into PV
     o = torch.einsum("bgrst,btgd->bsgrd", probs, v)
-    return o.reshape(B, S, Hq, dh)
+    return merge_dims(o, 2)
 
 
 def make_attn_mask(
@@ -226,24 +234,78 @@ def _sdpa_blockwise(
     return out.reshape(B, S, Hq, dh).to(q.dtype)
 
 
+def _sdpa_blockwise_flat(
+    cfg: ModelConfig, q, k, v, *, is_global: bool, block: int = 512,
+) -> torch.Tensor:
+    """Blockwise attention over FLAT heads (KV repeated to Hq) — the TP
+    layout: Hq divides the model axis even when (G, rep) factors don't.
+    The KV repeat is a local slice of a replicated tensor under the
+    "heads" rule.  The same online softmax as ``_sdpa_blockwise``, a
+    Python loop over KV blocks."""
+    B, S, Hq, dh = q.shape
+    rep = Hq // k.shape[2]
+    k = constrain(torch.repeat_interleave(k, rep, dim=2), "heads")
+    v = constrain(torch.repeat_interleave(v, rep, dim=2), "heads")
+    qb = min(block, S)
+    kvb = min(block, S)
+    nq, nk = S // qb, S // kvb
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    qf = q.reshape(B, nq, qb, Hq, dh)
+    kg = k.reshape(B, nk, kvb, Hq, dh)
+    vg = v.reshape(B, nk, kvb, Hq, dh)
+    q_pos = torch.arange(S, device=dev).reshape(nq, qb)
+
+    acc = torch.zeros((B, nq, qb, Hq, dh), dtype=torch.float32, device=dev)
+    m = torch.full((B, nq, qb, Hq), -math.inf, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, nq, qb, Hq), dtype=torch.float32, device=dev)
+    for kidx in range(nk):
+        kblk, vblk = kg[:, kidx], vg[:, kidx]
+        logits = torch.einsum(
+            "bnqhd,bkhd->bnqhk", qf, kblk
+        ).float() * scale                                  # [B,nq,qb,Hq,kvb]
+        k_pos = kidx * kvb + torch.arange(kvb, device=dev)
+        msk = torch.ones((nq, qb, kvb), dtype=torch.bool, device=dev)
+        if cfg.causal:
+            msk = msk & (k_pos[None, None, :] <= q_pos[:, :, None])
+        if cfg.attn == "swa" and not is_global:
+            msk = msk & (
+                k_pos[None, None, :] > q_pos[:, :, None] - cfg.swa_window
+            )
+        logits = torch.where(msk[None, :, :, None, :], logits, -1e30)
+        new_m = torch.maximum(m, torch.amax(logits, dim=-1))
+        alpha = torch.exp(m - new_m)
+        pexp = torch.exp(logits - new_m[..., None])
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bnqhk,bkhd->bnqhd", pexp.to(q.dtype), vblk
+        ).float()
+        l = l * alpha + torch.sum(pexp, dim=-1)
+        m = new_m
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.reshape(B, S, Hq, dh).to(q.dtype)
+
+
 def attention_train(
     cfg: ModelConfig, p: Attention, x: torch.Tensor,
     positions: torch.Tensor, is_global: bool,
 ) -> torch.Tensor:
-    B, S, _ = x.shape
+    S = x.shape[1]
     q, k, v = _qkv(cfg, p, x)
     q, k = _position_embed(cfg, q, k, positions)
     q = constrain(q, "heads")
     k = constrain(k, "kv_heads")
     v = constrain(v, "kv_heads")
-    # The reference's flat-heads blockwise path is taken only when heads
-    # are tensor-parallel (shardctx.heads_are_tp), which needs a mesh.
+    if S > 1024 and heads_are_tp():
+        o = _sdpa_blockwise_flat(cfg, q, k, v, is_global=is_global)
+        o = constrain(o, "heads")
+        return merge_dims(o, 2) @ p.wo
     if S > 1024:
         o = _sdpa_blockwise(cfg, q, k, v, is_global=is_global)
     else:
         o = _sdpa(cfg, q, k, v, make_attn_mask(cfg, S, is_global, x.device))
     o = constrain(o, "heads")
-    return o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p.wo
+    return merge_dims(o, 2) @ p.wo
 
 
 def attention_decode(
@@ -261,22 +323,20 @@ def attention_decode(
     cur_pos[b] % C, IN PLACE: an inactive row writes back the slot it holds
     (the reference drops its out-of-bounds scatter), so its K/V stay
     untouched and no row's arithmetic depends on another's."""
-    B = x.shape[0]
     kc, vc = kv_cache
     C = kc.shape[1]
     q, k, v = _qkv(cfg, p, x)
     q, k = _position_embed(cfg, q, k, positions)
     slot = (cur_pos % C).long()
-    bidx = torch.arange(B, device=x.device)
     keep = (active > 0)[:, None, None]
-    kc[bidx, slot] = torch.where(keep, k[:, 0].to(kc.dtype), kc[bidx, slot])
-    vc[bidx, slot] = torch.where(keep, v[:, 0].to(vc.dtype), vc[bidx, slot])
+    write_rows_(kc, slot, k[:, 0].to(kc.dtype), keep)
+    write_rows_(vc, slot, v[:, 0].to(vc.dtype), keep)
     # A ring slot t is valid if written (t <= pos) or the ring has wrapped.
     t = torch.arange(C, device=x.device)
     valid = (t[None, :] <= cur_pos[:, None]) | (cur_pos[:, None] >= C)
     mask = valid[:, None, None, :]              # [B,1,1,C]
     o = _sdpa(cfg, q, kc, vc, mask)
-    out = o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ p.wo
+    out = merge_dims(o, 2) @ p.wo
     return out, (kc, vc)
 
 

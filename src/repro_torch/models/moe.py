@@ -2,11 +2,11 @@
 (Qwen-MoE style), dense one-hot dispatch or capacity-bounded dispatch.
 
 The torch port of ``repro.models.moe``.  Load-balancing aux loss follows
-Switch Transformer (fraction-of-tokens x mean-router-prob per expert).  The
-reference's expert-parallel ``moe_mlp_shardmap`` needs a device mesh and
-comes with the launch slice; on one card ``moe_forward`` takes the capacity
-or the dense dispatch exactly as the reference does with no rules
-installed.
+Switch Transformer (fraction-of-tokens x mean-router-prob per expert).
+``moe_forward`` dispatches as the reference does: the expert-parallel
+``moe_mlp_shardmap`` (explicit all-to-all over the "model" mesh axis) when
+the ``moe_ep`` marker rule is installed, else the capacity or the dense
+dispatch.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import MLP, Init
-from .shardctx import constrain
+from .shardctx import constrain, get_rule, to_placements
 
 
 class MoE(nn.Module):
@@ -33,8 +33,8 @@ class MoE(nn.Module):
             self.shared = MLP(cfg, init, d_ff=cfg.shared_d_ff)
 
 
-def _route(cfg: ModelConfig, p: MoE, x: torch.Tensor):
-    logits = (x @ p.router).float()
+def _route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
+    logits = (x @ router).float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)   # renormalize
@@ -54,7 +54,7 @@ def moe_mlp(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense dispatch.  x: [B, S, D] -> (out [B, S, D], aux_loss scalar)."""
     E = cfg.n_experts
-    probs, top_p, top_i = _route(cfg, p, x)                   # [B,S,K]
+    probs, top_p, top_i = _route(cfg, p.router, x)            # [B,S,K]
 
     # combine [B,S,E] = sum_k onehot(top_i_k) * top_p_k
     onehot = F.one_hot(top_i, E).to(x.dtype)                  # [B,S,K,E]
@@ -89,7 +89,7 @@ def moe_mlp_capacity(
     E, K = cfg.n_experts, cfg.top_k
     N = B * S
     xf = x.reshape(N, D)
-    probs, top_p, top_i = _route(cfg, p, xf)                  # [N, K]
+    probs, top_p, top_i = _route(cfg, p.router, xf)           # [N, K]
 
     C = int(max(1, round(K * N * cfg.moe_capacity_factor / E)))
     C = -(-C // 64) * 64   # round up, as the reference keeps it
@@ -105,7 +105,7 @@ def moe_mlp_capacity(
     src = torch.where(keep.reshape(-1)[:, None], src, 0)
 
     buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
-    buf.index_put_((flat_e, flat_s), src.to(x.dtype), accumulate=True)
+    buf = buf.index_put((flat_e, flat_s), src.to(x.dtype), accumulate=True)
     buf = constrain(buf, "moe_buf")
     g = torch.einsum("ecd,edf->ecf", buf, p.w_gate)
     u = torch.einsum("ecd,edf->ecf", buf, p.w_up)
@@ -114,7 +114,7 @@ def moe_mlp_capacity(
     gathered = y[flat_e, flat_s]                              # [N*K, D]
     outf = torch.zeros((N, D), dtype=torch.float32, device=x.device)
     tok_idx = torch.arange(N, device=x.device).repeat_interleave(K)
-    outf.index_add_(0, tok_idx, gathered.float() * flat_w[:, None])
+    outf = outf.index_add(0, tok_idx, gathered.float() * flat_w[:, None])
     out = _shared(cfg, p, x, outf.reshape(B, S, D).to(x.dtype))
 
     frac_tokens = torch.mean(tok_onehot.float(), dim=0)
@@ -123,7 +123,231 @@ def moe_mlp_capacity(
     return out, aux
 
 
+def _capacity_local(cfg: ModelConfig, n: int) -> int:
+    """The per-shard capacity of the expert-parallel dispatch: ceil to 8 of
+    K * n * cf / E (truncated first), at least 8, as the reference's
+    shard_map body has it; the capacity path rounds up to 64 instead, so
+    the two drop different tokens when a buffer overflows."""
+    c = int(cfg.top_k * n * cfg.moe_capacity_factor / cfg.n_experts)
+    return int(max(8, -(-c // 8) * 8))
+
+
+class IdentityComm:
+    """The collectives of :func:`moe_ep_local` on one device (tp = 1): the
+    gather, both all-to-alls and the mean are the identity."""
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return t
+
+    def to_experts(self, buf: torch.Tensor) -> torch.Tensor:
+        return buf
+
+    def from_experts(self, y: torch.Tensor) -> torch.Tensor:
+        return y
+
+    def mean(self, aux: torch.Tensor) -> torch.Tensor:
+        return aux
+
+
+class _MeshMean(torch.autograd.Function):
+    """The mean of a local scalar over every rank of ``groups`` (one group
+    per mesh axis; JAX's ``pmean`` over all of them).  Its transpose is the
+    same mean of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return _mesh_mean(t, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mesh_mean(g, ctx.groups), None
+
+
+def _mesh_mean(t: torch.Tensor, groups) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+
+    n = 1
+    for g in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, "sum", g))
+        n *= g.size()
+    return t / n
+
+
+class MeshComm:
+    """The collectives of :func:`moe_ep_local` on ``mesh``: weights
+    gathered over "data", expert buffers exchanged by all-to-all over
+    "model", the aux loss averaged over every axis.  All are functional
+    collectives with autograd."""
+
+    def __init__(self, mesh) -> None:
+        self.tp = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+        self.model = mesh.get_group("model")
+        self.data = mesh.get_group("data")
+        self.groups = [mesh.get_group(a) for a in mesh.mesh_dim_names]
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        from torch.distributed import _functional_collectives as funcol
+
+        single = getattr(funcol, "all_gather_single_autograd", None)
+        if single is None:       # older torch: the tensor form gathers any dim
+            return funcol.all_gather_tensor_autograd(t, dim, self.data)
+        return single(t.movedim(dim, 0).contiguous(), 0,
+                      self.data).movedim(0, dim)
+
+    def _a2a(self, t: torch.Tensor) -> torch.Tensor:
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.all_to_all_single_autograd(t, None, None, self.model)
+
+    def to_experts(self, buf: torch.Tensor) -> torch.Tensor:
+        """[E, C, D] -> [E/tp, tp*C, D]: each expert shard receives every
+        source shard's buffers for its experts, source i at i*C."""
+        E, C, D = buf.shape
+        tp = self.tp
+        recv = self._a2a(buf.contiguous())          # [tp * E/tp, C, D]
+        return recv.reshape(tp, E // tp, C, D).transpose(0, 1).reshape(
+            E // tp, tp * C, D)
+
+    def from_experts(self, y: torch.Tensor) -> torch.Tensor:
+        """[E/tp, tp*C, D] -> [E, C, D]: the results go back to the shard
+        whose tokens they are."""
+        e, tc, D = y.shape
+        tp = self.tp
+        send = y.reshape(e, tp, tc // tp, D).transpose(0, 1).reshape(
+            tp * e, tc // tp, D)
+        return self._a2a(send.contiguous())
+
+    def mean(self, aux: torch.Tensor) -> torch.Tensor:
+        return _MeshMean.apply(aux, self.groups)
+
+
+def moe_ep_local(cfg: ModelConfig, xl: torch.Tensor, router: torch.Tensor,
+                 wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, comm
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The shard_map body of the reference's ``moe_mlp_shardmap`` on one
+    device's shards: ``xl`` [bl, sl, D] its tokens, ``router`` [D/dp, E],
+    ``wg``/``wu`` [E/tp, D/dp, F] and ``wd`` [E/tp, F, D/dp] its weight
+    shards.  ``comm`` carries the collectives (:class:`MeshComm`, or
+    :class:`IdentityComm` on one device).  Routing is per shard, with the
+    local capacity of :func:`_capacity_local`."""
+    E, K = cfg.n_experts, cfg.top_k
+    # Gather the FSDP'd D-dim of this device's experts (ZeRO-at-use).
+    wg = comm.gather(wg, 1)
+    wu = comm.gather(wu, 1)
+    wd = comm.gather(wd, 2)
+    router = comm.gather(router, 0)
+    bl, sl, d = xl.shape
+    n = bl * sl
+    xf = xl.reshape(n, d)
+    probs, top_p, top_i = _route(cfg, router, xf)
+    C = _capacity_local(cfg, n)
+    tok_onehot = F.one_hot(top_i, E).sum(dim=1)               # [n, E]
+    base = torch.cumsum(tok_onehot, dim=0) - tok_onehot
+    slot = torch.gather(base, 1, top_i)
+    keep = slot < C
+    flat_e = torch.where(keep, top_i, 0).reshape(-1)
+    flat_s = torch.where(keep, slot, 0).reshape(-1)
+    flat_w = torch.where(keep, top_p, 0.0).reshape(-1)
+    src = xf.repeat_interleave(K, dim=0)
+    src = torch.where(keep.reshape(-1)[:, None], src, 0)
+    buf = torch.zeros((E, C, d), dtype=xl.dtype, device=xl.device)
+    buf = buf.index_put((flat_e, flat_s), src.to(xl.dtype), accumulate=True)
+    recv = comm.to_experts(buf)                               # [E/tp, tp*C, D]
+    g = torch.einsum("ecd,edf->ecf", recv, wg)
+    u = torch.einsum("ecd,edf->ecf", recv, wu)
+    y = torch.einsum("ecf,efd->ecd", F.silu(g) * u, wd)
+    back = comm.from_experts(y)                               # [E, C, D]
+    gathered = back[flat_e, flat_s]
+    outf = torch.zeros((n, d), dtype=torch.float32, device=xl.device)
+    tok_idx = torch.arange(n, device=xl.device).repeat_interleave(K)
+    outf = outf.index_add(0, tok_idx, gathered.float() * flat_w[:, None])
+    out = outf.reshape(bl, sl, d).to(xl.dtype)
+    frac_tokens = torch.mean(tok_onehot.float(), dim=0)
+    frac_probs = torch.mean(probs, dim=0)
+    aux = comm.mean(torch.sum(frac_tokens * frac_probs) * E)
+    return out, aux
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, whose gradient is scaled by ``s``."""
+
+    @staticmethod
+    def forward(ctx, t, s):
+        ctx.s = s
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def _shard_in(mesh, t, spec) -> torch.Tensor:
+    """Enter a shard_map: ``t`` laid out by ``spec``, as this rank's local
+    tensor; its cotangent sums over the mesh dims ``spec`` leaves out (a
+    replicated input's gradient is the sum of its replicas')."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    placements = to_placements(mesh, spec)
+    if not isinstance(t, DTensor):     # a plain tensor counts as replicated
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
+    t = t.redistribute(mesh, placements)
+    grads = [Partial() if isinstance(p, Replicate) else p for p in placements]
+    return t.to_local(grad_placements=grads)
+
+
+def _shard_out(mesh, t: torch.Tensor, spec) -> torch.Tensor:
+    """Leave a shard_map: this rank's ``t`` as the shard of a DTensor laid
+    out by ``spec``; its cotangent is divided over the mesh dims ``spec``
+    leaves out, as the reference's transpose divides it."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    placements = to_placements(mesh, spec)
+    n = 1
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Replicate):
+            n *= mesh.shape[i]
+    if n > 1:
+        t = _ScaleGrad.apply(t, 1.0 / n)
+    return DTensor.from_local(t, mesh, placements)
+
+
+def moe_mlp_shardmap(cfg: ModelConfig, p: MoE, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE with an EXPLICIT all-to-all (the reference's
+    shard_map, here on DTensor local shards).
+
+    The routing is done per shard in plain torch, and the only
+    cross-device traffic is the all-to-all of the [E, C_l, D] capacity
+    buffers over the "model" axis, plus the ZeRO weight gather over
+    "data" (functional collectives with autograd, so it is differentiable
+    end to end).  Requires the ``moe_ep`` marker rule (for the mesh) and
+    the ``residual`` rule (the activations' layout)."""
+    mesh = get_rule("moe_ep").mesh
+    x_spec = get_rule("residual").spec
+    tp = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    if cfg.n_experts % tp:
+        raise ValueError(f"expert parallelism needs the {cfg.n_experts} "
+                         f"experts to divide the model axis ({tp})")
+    w_spec3 = ("model", "data", None)    # [E, D, F] as stored (EP x FSDP)
+    wd_spec = ("model", None, "data")
+    out, aux = moe_ep_local(
+        cfg, _shard_in(mesh, x, x_spec),
+        _shard_in(mesh, p.router, ("data", None)),
+        _shard_in(mesh, p.w_gate, w_spec3), _shard_in(mesh, p.w_up, w_spec3),
+        _shard_in(mesh, p.w_down, wd_spec), MeshComm(mesh))
+    out = _shard_out(mesh, out, x_spec)
+    aux = _shard_out(mesh, aux, ())
+    return _shared(cfg, p, x, out), aux
+
+
 def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor):
+    if (cfg.moe_dispatch == "capacity" and get_rule("moe_ep") is not None
+            and cfg.n_experts and get_rule("residual") is not None):
+        mesh = get_rule("moe_ep").mesh
+        tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 0)
+        if tp and cfg.n_experts % tp == 0:
+            return moe_mlp_shardmap(cfg, p, x)
     if cfg.moe_dispatch == "capacity":
         return moe_mlp_capacity(cfg, p, x)
     return moe_mlp(cfg, p, x)

@@ -18,7 +18,7 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import Init
-from .shardctx import constrain
+from .shardctx import constrain, merge_dims
 
 
 def cumsum_last(x: torch.Tensor) -> torch.Tensor:
@@ -162,7 +162,7 @@ def ssm_train(cfg: ModelConfig, p: SSM, u: torch.Tensor) -> torch.Tensor:
         Bm, Cm, cfg.ssm_chunk,
     )
     Y = Y + x * p.D[None, None, :, None]
-    y = _gated_rmsnorm(Y.reshape(B, L, di), z, p.ssm_norm, cfg.norm_eps)
+    y = _gated_rmsnorm(merge_dims(Y, 2), z, p.ssm_norm, cfg.norm_eps)
     return y @ p.out_proj
 
 

@@ -34,7 +34,7 @@ from .layers import (
     rmsnorm,
 )
 from .moe import MoE, moe_forward
-from .shardctx import constrain
+from .shardctx import constrain, follow, take_last
 from .ssm import SSM, init_ssm_cache, ssm_decode, ssm_train
 
 
@@ -218,10 +218,10 @@ def loss_fn(
     cfg: ModelConfig, params: Transformer, batch: Dict,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     logits, aux = forward(cfg, params, batch)
-    labels = batch["labels"].long()
+    labels = follow(batch["labels"].long(), logits)
     logits32 = logits.float()
     lse = torch.logsumexp(logits32, dim=-1)
-    ll = torch.gather(logits32, -1, labels[..., None])[..., 0]
+    ll = take_last(logits32, labels[..., None])[..., 0]
     nll = lse - ll
     mask = batch.get("loss_mask")
     if mask is not None:

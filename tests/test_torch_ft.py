@@ -278,8 +278,13 @@ def test_serve_launcher_recovers_its_sessions():
 
 
 def test_train_launcher_refuses_distributed(monkeypatch):
+    """--distributed outside torchrun (no RANK, WORLD_SIZE, LOCAL_RANK)
+    stops before training rather than train alone."""
     from repro_torch.launch import train
 
-    monkeypatch.setattr(sys, "argv", ["train", "--distributed"])
-    with pytest.raises(SystemExit, match="item 5"):
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(sys, "argv", ["train", "--distributed", "--device",
+                                      "cpu"])
+    with pytest.raises(SystemExit, match="launch under torchrun"):
         train.main()

@@ -351,6 +351,60 @@ def test_reduced_decode_on_the_card_matches_the_cpu(cuda):
     assert ops.GANG_FASTPATH.launches >= before + 6
 
 
+def test_reduced_hymba_decode_wraps_its_window_on_the_card(cuda):
+    """hymba's SWA ring wrapping on the card: the reduced hymba (window 8,
+    global layer 0, an SSM beside attention in every layer) in f32 (TF32
+    off), one module's weights on both devices, 24 decode steps of 4 rows
+    (all active for the first 10, then a random active mask), so every
+    row decodes past its window and its ring slots are rewritten; logits
+    within 1e-4 (f32 sums in other orders), pos and the tokens' argmax
+    identical, and a serving driver on the card's device witness gang
+    generating the CPU driver's tokens past the window."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import (
+        Transformer,
+        decode_step,
+        init_decode_cache,
+        reduced,
+    )
+    from repro_torch.serving import CurpServeDriver, ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(ARCHS["hymba-1.5b"])
+    assert cfg.swa_window == 8 and cfg.global_attn_layers == (0,)
+    cpu = Transformer(cfg, device="cpu", seed=4)
+    card = Transformer.from_state_dict(cfg, cpu.state_dict(), device=cuda)
+    rng = np.random.default_rng(6)
+    caches = {d: init_decode_cache(cfg, 4, 32, device=d)
+              for d in ("cpu", cuda)}
+    for i in range(24):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1))).int()
+        act = torch.from_numpy(rng.integers(0, 2, 4) if i >= 10
+                               else np.ones(4, np.int64)).int()
+        got, caches[cuda] = decode_step(cfg, card, {
+            "tokens": toks.to(cuda), "active": act.to(cuda)}, caches[cuda])
+        want, caches["cpu"] = decode_step(cfg, cpu, {
+            "tokens": toks, "active": act}, caches["cpu"])
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=1e-4)
+        assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+    assert torch.equal(caches[cuda]["pos"].cpu(), caches["cpu"]["pos"])
+    assert int(caches["cpu"]["pos"].min()) > cfg.swa_window
+
+    def serve(device, model):
+        d = CurpServeDriver(cfg, ServeConfig(
+            max_batch=4, max_seq=32, n_shards=2, witness_backend="device",
+            device=device), params=model)
+        d.submit("a", [5, 17, 99])
+        d.submit("b", [1, 2])
+        d.generate(12)
+        return {sid: s.tokens for sid, s in d.sessions.items()}
+
+    tokens = serve(cuda, card)
+    assert tokens == serve("cpu", cpu)
+    assert all(len(t) > cfg.swa_window for t in tokens.values())
+
+
 @pytest.mark.parametrize("arch", ["smollm-360m", "hymba-1.5b"])
 def test_reduced_trainer_recovers_bit_exact_on_the_card(cuda, arch,
                                                         tmp_path):
