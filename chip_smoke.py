@@ -181,10 +181,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    tolerance.  The store calls of the main run and of the atomic run are
    replayed on the device backend on the CPU (the gang kernels' plain
    versions): commit counts, the six gang planes and the reason counters
-   bit for bit.  Reports the decode step's p50 and p99 (CUDA events),
-   tokens/s at batch 8, the host ms of each step's commit, the gang
-   kernels' launches per step, the device's idle share over one profiled
-   step and the host's self time by operator over another.
+   bit for bit.  On the card each driver decodes by replaying one CUDA
+   graph a step, captured at its first decode: for each model the crashed
+   driver then runs 8 more steps of every row through its graph (no
+   commit) against ``decode_step`` run eagerly on a clone of its cache
+   (logits' largest difference printed and within ``BF16_LOGIT_TOL``,
+   greedy tokens equal wherever the eager top-2 margin exceeds it, one
+   replay a step), with both steps' p50 (CUDA events) and, for one step of
+   each under the profiler, the device busy ms and the host's CUDA runtime
+   calls (launches and copies).  Reports the decode step's p50 and p99
+   (CUDA events), tokens/s at batch 8, the host ms of each step's commit,
+   the gang kernels' launches per step, the device's idle share over one
+   profiled step (and by CUDA events, where the profiler's busy time for
+   a replay is not about the eager step's), the host's self time by
+   operator over another, and the phase's wall seconds.
 
 8. Training (run last; launches counted from 0 over this phase alone,
    and it must launch none of the port's kernels: the model is plain
@@ -293,6 +303,9 @@ SERVE_ARCHS = ("llama3.2-1b", "hymba-1.5b")
 SERVE_BATCH, SERVE_MAX_SEQ, SERVE_SHARDS = 8, 256, 4
 SERVE_PROMPT, SERVE_TOKENS, SERVE_CRASH_AT = (16, 48), 32, 16
 SERVE_NUMERIC_STEPS = 8
+# The driver's decode graph against the eager step, on the crashed driver
+# after its run: steps of every live row, no commit.
+SERVE_GRAPH_STEPS = 8
 BF16_LOGIT_TOL, F32_LOGIT_TOL = 0.25, 1e-3
 # Training (phase 8): CURP-FT at smollm-360m's published width and depth
 # (bf16 weights, remat, f32 moments), train_4k's sequence of 4096 in a
@@ -2252,21 +2265,147 @@ def _pcts(np, xs):
     return (float(np.percentile(xs, 50)), float(np.percentile(xs, 99)))
 
 
-def _serve_idle(np, torch, d):
+def _serve_idle(np, torch, d, clock):
     """One more decode step (and its commit) under the profiler: device
-    busy time against the step's wall time."""
+    busy time against the step's wall time, and the decode's own time by
+    CUDA events (the graph's replay with its copies)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    n = len(clock.decode)
+    clock.armed = True
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         d.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    clock.armed = False
+    decode_ms = clock.decode_ms()[n]
     us = _device_us(prof)
     busy = None if us is None else us / 1e3
-    return dict(wall_ms=wall_ms, busy_ms=busy,
-                idle_share=None if busy is None else 1.0 - busy / wall_ms)
+    return dict(wall_ms=wall_ms, busy_ms=busy, decode_event_ms=decode_ms,
+                idle_share=None if busy is None else 1.0 - busy / wall_ms,
+                idle_share_events=1.0 - decode_ms / wall_ms)
+
+
+def _clone_cache(cache):
+    return {"pos": cache["pos"].clone(), "segments": [
+        {k: ({n: t.clone() for n, t in v.items()} if k == "ssm"
+             else v.clone()) for k, v in e.items()}
+        for e in cache["segments"]]}
+
+
+def _profiled(torch, fn):
+    """``fn`` under the profiler twice: the device busy ms (CUDA activity
+    alone), then the host's CUDA runtime calls by name (kernel and graph
+    launches, copies, fills; the CPU's activity beside)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = _device_us(prof)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = {}
+    for e in prof.key_averages():
+        k = e.key
+        if k.startswith("cu") and any(w in k for w in (
+                "Launch", "Memcpy", "Memset")):
+            calls[k] = calls.get(k, 0) + e.count
+    return (None if us is None else us / 1e3), calls
+
+
+def _launches(calls):
+    return sum(n for k, n in calls.items() if "Launch" in k)
+
+
+def _serve_graph_check(np, torch, card, name, d):
+    """SERVE_GRAPH_STEPS decode steps of every live row through the
+    driver's graph (``_decode``; no commit) against the same step run
+    eagerly by ``decode_step`` on a clone of the cache taken just before
+    it: logits and caches compared, greedy tokens equal wherever the eager
+    top-2 margin exceeds BF16_LOGIT_TOL; each graph step one replay; both
+    timed by CUDA events; then one step of each under the profiler: device
+    busy ms and the host's runtime calls."""
+    from repro_torch.models import cache_tensors, decode_step
+
+    live = torch.tensor([sid is not None for sid in d.slots])
+    host = np.zeros((2, SERVE_BATCH), np.int32)
+    for i, sid in enumerate(d.slots):
+        if sid:
+            host[:, i] = (d.sessions[sid].tokens[-1], 1)
+    err = cache_err = 0.0
+    equal = judged = 0
+    graph_ms, eager_ms = [], []
+    replays = d.graph_replays
+    for _ in range(SERVE_GRAPH_STEPS):
+        twin = _clone_cache(d.cache)
+        dev = torch.from_numpy(host).to(d.device)
+        batch = {"tokens": dev[0][:, None], "active": dev[1]}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        want, _ = decode_step(d.cfg, d.params, batch, twin)
+        ev[1].record()
+        ev[2].record()
+        got = d._decode(host)
+        ev[3].record()
+        torch.cuda.synchronize()
+        eager_ms.append(ev[0].elapsed_time(ev[1]))
+        graph_ms.append(ev[2].elapsed_time(ev[3]))
+        got, want = got.cpu()[live], want.cpu()[live]
+        err = max(err, float((got - want).abs().max()))
+        for a, b in zip(cache_tensors(d.cache), cache_tensors(twin)):
+            cache_err = max(cache_err, float((a.float() - b.float()).abs()
+                                             .max()))
+        top2 = torch.topk(want, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > BF16_LOGIT_TOL
+        judged += int(sure.sum())
+        check(torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure]),
+              f"{name}: the decode graph's greedy tokens differ from the "
+              f"eager step's where its top-2 margin exceeds "
+              f"{BF16_LOGIT_TOL}")
+        equal += int((got.argmax(-1) == want.argmax(-1)).sum())
+        host[0, live.numpy()] = got.argmax(-1).numpy()
+    rows = SERVE_GRAPH_STEPS * int(live.sum())
+    check(d.graph_replays - replays == SERVE_GRAPH_STEPS,
+          f"{name}: {d.graph_replays - replays} graph replays for "
+          f"{SERVE_GRAPH_STEPS} decode steps")
+    check(err <= BF16_LOGIT_TOL, f"{name}: the decode graph's logits differ "
+                                 f"from the eager step's by {err:.6g} > "
+                                 f"{BF16_LOGIT_TOL}")
+    twin = _clone_cache(d.cache)
+    dev = torch.from_numpy(host).to(d.device)
+    eager_busy, eager_calls = _profiled(torch, lambda: decode_step(
+        d.cfg, d.params, {"tokens": dev[0][:, None], "active": dev[1]},
+        twin))
+    graph_busy, graph_calls = _profiled(torch, lambda: d._decode(host))
+    g50, e50 = _pcts(np, graph_ms)[0], _pcts(np, eager_ms)[0]
+    say(card, f"serving {name}: decode graph against the eager step, "
+              f"{SERVE_GRAPH_STEPS} steps x {int(live.sum())} rows: logits "
+              f"max abs diff {err:.6g} (tol {BF16_LOGIT_TOL}), caches "
+              f"{cache_err:.6g}, greedy tokens equal on {equal} of {rows} "
+              f"rows ({judged} past the margin); one replay a step; decode "
+              f"p50 graph {g50:.3f} ms, eager {e50:.3f} ms (CUDA events); "
+              f"one step under the profiler: device busy graph "
+              + ("not measured" if graph_busy is None else
+                 f"{graph_busy:.3f}")
+              + " ms, eager "
+              + ("not measured" if eager_busy is None else
+                 f"{eager_busy:.3f}")
+              + f" ms; host runtime calls graph {graph_calls}, eager "
+                f"{eager_calls}")
+    return dict(max_abs_err=err, cache_max_abs_err=cache_err,
+                tokens_equal=equal, rows=rows, judged=judged,
+                graph_ms=graph_ms, eager_ms=eager_ms, graph_p50=g50,
+                eager_p50=e50, graph_busy_ms=graph_busy,
+                eager_busy_ms=eager_busy, graph_calls=graph_calls,
+                eager_calls=eager_calls,
+                graph_launches=_launches(graph_calls),
+                eager_launches=_launches(eager_calls))
 
 
 def _serve_host_ops(torch, d, top=8):
@@ -2361,6 +2500,7 @@ def phase_serving(np, torch, card, device):
 
     kops.reset_launch_counts()
     info = {}
+    t_phase = time.perf_counter()
     for name in SERVE_ARCHS:
         cfg = serve_arch(name)
         t0 = time.perf_counter()
@@ -2391,6 +2531,7 @@ def phase_serving(np, torch, card, device):
                                   f"{SERVE_CRASH_AT} steps generated other "
                                   f"tokens")
         _check_store(card, f"{name} (crashed)", b, paths=False)
+        graph = _serve_graph_check(np, torch, card, name, b)
         dec = clock.decode_ms()
         p50, p99 = _pcts(np, dec)
         commit_ms = [s * 1e3 for s in clock.commit_s]
@@ -2403,13 +2544,16 @@ def phase_serving(np, torch, card, device):
                    commit_p99=c99, tokens_per_s=SERVE_BATCH * SERVE_TOKENS
                    / wall, launches_per_step=per_step,
                    fast_slow=(a.store.fast_commits, a.store.slow_commits),
-                   crash=rep)
+                   crash=rep, graph=graph,
+                   graph_replays=(a.graph_replays, b.graph_replays))
         say(card, f"serving {name}: {SERVE_BATCH} sessions (prompts "
                   f"{min(map(len, prompts.values()))}-"
                   f"{max(map(len, prompts.values()))} tokens) x "
                   f"{SERVE_TOKENS} tokens on 4 shards of the device witness "
-                  f"gang: decode step p50 {p50:.3f} ms, p99 {p99:.3f} ms "
-                  f"(CUDA events); {row['tokens_per_s']:.1f} tokens/s at "
+                  f"gang: decode step (one graph replay) p50 {p50:.3f} "
+                  f"ms, p99 {p99:.3f} ms (CUDA events); "
+                  f"{a.graph_replays} replays in driver A"
+                  f"; {row['tokens_per_s']:.1f} tokens/s at "
                   f"batch {SERVE_BATCH}; commit host ms per step p50 "
                   f"{c50:.3f}, p99 {c99:.3f}; launches per step "
                   + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
@@ -2423,13 +2567,36 @@ def phase_serving(np, torch, card, device):
             row.update(_serve_other_paths(np, torch, card, cfg, model,
                                           prompts, a, want))
             row["numerics"] = _serve_numerics(np, torch, card, cfg, model)
-        row["idle"] = _serve_idle(np, torch, a)
+        row["idle"] = _serve_idle(np, torch, a, clock)
         idle = row["idle"]
+        # The profiler's idle share stands only if it sees the graph's
+        # kernels: a replayed decode busy about as long as the eager one.
+        seen = (graph["graph_busy_ms"] is not None
+                and graph["eager_busy_ms"] is not None
+                and 0.8 <= graph["graph_busy_ms"] / graph["eager_busy_ms"]
+                <= 1.25)
+        idle["profiler_sees_graph"] = seen
+        # The profiler slows the step it traces: its busy time against the
+        # mean step of the untraced run (wall over steps, commits included).
+        idle["step_ms"] = wall / SERVE_TOKENS * 1e3
+        idle["idle_share_untraced"] = (
+            None if idle["busy_ms"] is None
+            else 1.0 - idle["busy_ms"] / idle["step_ms"])
         say(card, f"serving {name}: one step under the profiler: wall "
                   f"{idle['wall_ms']:.3f} ms, device busy "
                   + ("not measured" if idle["busy_ms"] is None else
                      f"{idle['busy_ms']:.3f} ms, idle share "
-                     f"{idle['idle_share']:.4f}"))
+                     f"{idle['idle_share']:.4f}")
+                  + f"; the decode's replay {idle['decode_event_ms']:.3f} ms "
+                    f"by CUDA events, idle share by events at most "
+                    f"{idle['idle_share_events']:.4f}; the profiler "
+                  + ("sees" if seen else "does not see")
+                  + " the graph's kernels (replayed busy against eager busy"
+                    " within 0.8-1.25x); against the untraced run's mean "
+                    f"step of {idle['step_ms']:.3f} ms the busy time leaves "
+                  + ("an idle share not measured"
+                     if idle["idle_share_untraced"] is None else
+                     f"an idle share of {idle['idle_share_untraced']:.4f}"))
         row["host_ops"] = _serve_host_ops(torch, a)
         say(card, f"serving {name}: host self time of one step under the "
                   f"profiler {row['host_ops']['total_ms']:.1f} ms, by op: "
@@ -2443,7 +2610,8 @@ def phase_serving(np, torch, card, device):
     check(all(launched[k] > 0 for k in path),
           f"serving did not launch every gang kernel: {launched}")
     say(card, "serving launches (phase 7 alone): "
-              + ", ".join(f"{k} {launched[k]}" for k in path))
+              + ", ".join(f"{k} {launched[k]}" for k in path)
+              + f"; phase 7 took {time.perf_counter() - t_phase:.1f} s")
     return launched, info
 
 

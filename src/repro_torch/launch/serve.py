@@ -5,7 +5,8 @@
 
 The torch port of ``repro.launch.serve``, with its flags and printout plus
 ``--device`` ("cuda" by default; it raises without a card), on
-``repro_torch.serving.CurpServeDriver``.
+``repro_torch.serving.CurpServeDriver``: on the card each token is one
+replay of the driver's captured decode graph, on the CPU an eager step.
 """
 from __future__ import annotations
 

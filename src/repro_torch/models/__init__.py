@@ -3,6 +3,7 @@
 from .config import ModelConfig, reduced
 from .transformer import (
     Transformer,
+    cache_tensors,
     decode_step,
     forward,
     init_decode_cache,
@@ -13,6 +14,6 @@ from .transformer import (
 )
 
 __all__ = [
-    "ModelConfig", "reduced", "decode_step", "forward", "init_decode_cache",
+    "ModelConfig", "reduced", "cache_tensors", "decode_step", "forward", "init_decode_cache",
     "init_params", "loss_fn", "prefill", "segments", "Transformer",
 ]

@@ -11,9 +11,10 @@ keeps the reference's layout, per segment of ``segments(cfg)``:
 
 (Hymba), each segment's tensors stacked over its layers, with window-sized
 KV for SWA layers and ``max_seq`` KV for global ones.  ``decode_step``
-writes the cache in place.  Every entry point places its tensors on
-``device`` ("cuda" unless the caller asks for another) and raises when it
-names a CUDA device and none is present: nothing falls back to the CPU.
+writes the cache in place, its positions too.  Every entry point places
+its tensors on ``device`` ("cuda" unless the caller asks for another) and
+raises when it names a CUDA device and none is present: nothing falls back
+to the CPU.
 """
 from __future__ import annotations
 
@@ -265,6 +266,15 @@ def init_decode_cache(
             "segments": segs}
 
 
+def cache_tensors(cache: Dict) -> List[torch.Tensor]:
+    """Every tensor of a decode cache, "pos" first, in a fixed order."""
+    out = [cache["pos"]]
+    for entry in cache["segments"]:
+        for name, t in entry.items():
+            out.extend(t.values() if name == "ssm" else [t])
+    return out
+
+
 def _block_decode(cfg: ModelConfig, p: Block, x, entry, j: int, cur_pos,
                   positions, is_global: bool, active):
     """Layer ``j`` of a segment's cache ``entry``, written in place."""
@@ -301,8 +311,9 @@ def decode_step(
     """One-token decode.  batch: {"tokens": [B,1]} (or {"embeds": [B,1,fd]});
     optional "positions" ([B,1] or [3,B,1]) and "active" ([B] int32: rows
     with 0 neither write caches nor advance).  Returns (logits [B,V] f32,
-    cache): the cache's tensors are written in place and its "pos" becomes
-    ``pos + active``."""
+    cache): every tensor of the cache is written in place, "pos" too
+    (``pos += active``, after every layer has read it), so a step captured
+    as a CUDA graph reads and writes the same tensors at each replay."""
     x = embed_inputs(cfg, params, batch)
     B = x.shape[0]
     cur_pos = cache["pos"]                       # [B]
@@ -320,7 +331,7 @@ def decode_step(
                               active)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = (x[:, 0, :] @ params.head()).float()
-    cache["pos"] = cur_pos + active
+    cur_pos.add_(active)
     return logits, cache
 
 

@@ -10,15 +10,22 @@ trade CURP makes: journal bytes are tiny because state is recomputable).
 
 The torch port of ``repro.serving.server``: the session and commit logic is
 the reference's, line for line.  ``ServeConfig.device`` places the model,
-its cache and the store's witness gang; a decode step runs eagerly under
-``torch.inference_mode()`` (the reference jits it), always at ``max_batch``
-rows so one row's logits never depend on which other rows are active.  A
-step copies its tokens and active mask to the device in one copy and its
-next tokens back in another (the argmax runs on the device).
+its cache and the store's witness gang.  A decode step always runs at
+``max_batch`` rows, so one row's logits never depend on which other rows
+are active, and it is one fixed shape: where the reference jits it once,
+the driver on a CUDA device captures it once, at its first decode, as a
+CUDA graph (the embedding, ``decode_step`` over the driver's own cache and
+the argmax), and each token is then one replay, its tokens and active mask
+copied in through a pinned buffer and its next tokens read back in one
+copy.  On the CPU the same step runs eagerly.  There is no switch and no
+fallback, as the reference's jit has none: a step that cannot be captured
+raises.
 """
 from __future__ import annotations
 
+import traceback
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -29,6 +36,7 @@ from ..core.telemetry import get_registry
 from ..models.config import ModelConfig
 from ..models.transformer import (
     Transformer,
+    cache_tensors,
     decode_step,
     init_decode_cache,
     resolve_device,
@@ -82,6 +90,9 @@ class CurpServeDriver:
                                       n_slots=serve.n_slots,
                                       device=serve.device)
         self.sessions: Dict[str, SessionState] = {}
+        self.cache: Optional[Dict] = None
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self.graph_replays = 0     # decode steps run as a replay of the graph
         self._reset_cache()
         self.tokens_served = 0
         reg = get_registry()
@@ -90,21 +101,91 @@ class CurpServeDriver:
         self._m_recoveries = reg.counter("serve.recoveries")
         self._m_replayed = reg.counter("serve.replayed_ops")
 
+    @torch.no_grad()
+    def _step_body(self, inputs: torch.Tensor):
+        """The step the graph holds: ``inputs`` [2, B] int32 (tokens over
+        the active mask) through ``decode_step`` on the driver's cache.
+        Returns (f32 logits [B, V], greedy tokens [B])."""
+        batch = {"tokens": inputs[0][:, None], "active": inputs[1]}
+        logits, _ = decode_step(self.cfg, self.params, batch, self.cache)
+        return logits, torch.argmax(logits, dim=-1)
+
     def _decode(self, host: np.ndarray) -> torch.Tensor:
         """One decode step of all ``max_batch`` rows; ``host`` is [2, B]
-        int32, tokens over the active mask.  Returns the f32 logits."""
-        dev = torch.from_numpy(host).to(self.device)
-        batch = {"tokens": dev[0][:, None], "active": dev[1]}
-        with torch.inference_mode():
-            logits, self.cache = decode_step(self.cfg, self.params, batch,
-                                             self.cache)
-        return logits
+        int32, tokens over the active mask.  Returns the f32 logits, a
+        tensor of the caller's own, and leaves the greedy tokens in
+        ``self._next`` until the next step."""
+        if self.device.type != "cuda":
+            logits, self._next = self._step_body(torch.from_numpy(host))
+            return logits
+        if self._graph is None:
+            self._capture()
+        self._check_addresses()
+        self._staged.synchronize()     # the last step's copy has read it
+        self._host_in.numpy()[:] = host
+        self._inputs.copy_(self._host_in, non_blocking=True)
+        self._staged.record()
+        self._graph.replay()
+        self.graph_replays += 1
+        return self._logits.clone()    # the next replay overwrites _logits
+
+    def _capture(self) -> None:
+        """Capture the decode step as a CUDA graph, once.  The warm-up and
+        the capture run on a side stream with every row inactive, which
+        leaves each cache tensor bit-unchanged (checked here against a host
+        copy), so neither disturbs a live session."""
+        if any(hasattr(p, "placements") for p in self.params.parameters()):
+            raise NotImplementedError(
+                "the serving driver captures its decode step as a CUDA graph, "
+                "which is not shown to hold for DTensor parameters; serve "
+                "plain tensors")
+        B = self.serve.max_batch
+        self._host_in = torch.zeros((2, B), dtype=torch.int32,
+                                    pin_memory=True)
+        self._inputs = torch.zeros((2, B), dtype=torch.int32,
+                                   device=self.device)
+        self._staged = torch.cuda.Event()
+        before = [t.cpu() for t in cache_tensors(self.cache)]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(side):
+                self._step_body(self._inputs)                # warm-up
+            with torch.cuda.graph(graph, stream=side):
+                self._logits, self._next = self._step_body(self._inputs)
+        except Exception as e:
+            raise RuntimeError("the decode step cannot be captured as a CUDA "
+                               f"graph: {_refusal(e)}") from e
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        if not all(torch.equal(a, t.cpu())
+                   for a, t in zip(before, cache_tensors(self.cache))):
+            raise RuntimeError("a decode step with no active row changed the "
+                               "cache; it cannot be warmed up and captured "
+                               "beside live sessions")
+        self._addresses = [t.data_ptr() for t in cache_tensors(self.cache)]
+        self._graph = graph
+
+    def _check_addresses(self) -> None:
+        """The captured graph reads and writes the cache at the addresses
+        it had at capture: the cache must never be reallocated."""
+        moved = [t.data_ptr() for t in cache_tensors(self.cache)]
+        if self._graph is not None and moved != self._addresses:
+            raise RuntimeError("the decode cache moved after its graph was "
+                               "captured")
 
     def _reset_cache(self) -> None:
-        self.cache = init_decode_cache(
-            self.cfg, self.serve.max_batch, self.serve.max_seq,
-            device=self.device,
-        )
+        """Every slot free and its cache zero: allocated at the first call,
+        then zeroed in place (a captured graph holds the addresses)."""
+        if self.cache is None:
+            self.cache = init_decode_cache(
+                self.cfg, self.serve.max_batch, self.serve.max_seq,
+                device=self.device,
+            )
+        else:
+            for t in cache_tensors(self.cache):
+                t.zero_()
+            self._check_addresses()
         self.slots: List[Optional[str]] = [None] * self.serve.max_batch
 
     # -- session management --------------------------------------------------------
@@ -142,12 +223,12 @@ class CurpServeDriver:
         for i, sid in live:
             last[i] = self.sessions[sid].tokens[-1]
             active[i] = 1
-        logits = self._decode(host)
+        self._decode(host)
         out: Dict[str, int] = {}
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt = self._next.tolist()          # one copy back
         to_commit: List[SessionState] = []
         for i, sid in live:
-            tok = int(nxt[i])
+            tok = nxt[i]
             s = self.sessions[sid]
             s.tokens.append(tok)
             out[sid] = tok
@@ -193,3 +274,18 @@ class CurpServeDriver:
         self._m_replayed.inc(report.replayed)
         return {"recovered_sessions": recovered,
                 "replayed_ops": report.replayed}
+
+
+def _refusal(e: BaseException) -> str:
+    """What refused a capture: the first error of the chain (a failed
+    capture's end raises again over it) and the port's innermost line on
+    its way."""
+    while e.__context__ is not None:
+        e = e.__context__
+    frames = [f for f in traceback.extract_tb(e.__traceback__)
+              if "repro_torch" in Path(f.filename).parts]
+    where = ""
+    if frames:
+        f = frames[-1]
+        where = f" at {Path(f.filename).name}:{f.lineno} ({f.line})"
+    return f"{type(e).__name__}{where}: {e}"

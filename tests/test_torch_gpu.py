@@ -405,6 +405,110 @@ def test_reduced_hymba_decode_wraps_its_window_on_the_card(cuda):
     assert all(len(t) > cfg.swa_window for t in tokens.values())
 
 
+def _against_eager(d, log):
+    """Wrap the driver's ``_decode``: each step also runs eagerly, by
+    ``decode_step`` on a clone of the driver's cache taken just before it,
+    and ``log`` gathers (graph logits, eager logits, active mask, the
+    caches' largest difference) after the step."""
+    from repro_torch.models import cache_tensors, decode_step
+
+    graph_decode = d._decode
+
+    def clone(cache):
+        return {"pos": cache["pos"].clone(), "segments": [
+            {k: ({n: t.clone() for n, t in v.items()} if k == "ssm"
+                 else v.clone()) for k, v in e.items()}
+            for e in cache["segments"]]}
+
+    def checked(host):
+        twin = clone(d.cache)
+        dev = torch.from_numpy(host).to(d.device)
+        want, _ = decode_step(d.cfg, d.params, {
+            "tokens": dev[0][:, None], "active": dev[1]}, twin)
+        got = graph_decode(host)
+        apart = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(cache_tensors(d.cache),
+                                    cache_tensors(twin)))
+        log.append((got, want, dev[1] > 0, apart))
+        return got
+
+    d._decode = checked
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "hymba-1.5b",
+                                  "qwen2-moe-a2.7b"])
+def test_serving_graph_matches_eager_decode_on_the_card(cuda, arch):
+    """On the card the driver decodes by replaying one CUDA graph a step,
+    captured at its first decode: every decode of a run (prompts fed, 24
+    generated tokens, a crash and its re-prefill after 12) is one replay,
+    counted on the driver, and is held against the same step run eagerly
+    by ``decode_step`` on a clone of the cache: greedy tokens equal;
+    logits and caches bit-equal for llama and hymba (the graph launches
+    the eager step's kernels on the same inputs), within 1e-4 for the
+    capacity MoE (f32, its scatter-adds are float atomics, order not
+    fixed)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import Transformer, reduced
+    from repro_torch.serving import CurpServeDriver, ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(ARCHS[arch])
+    if cfg.has_moe:
+        cfg = replace(cfg, moe_dispatch="capacity")
+    d = CurpServeDriver(cfg, ServeConfig(
+        max_batch=4, max_seq=32, n_shards=2, witness_backend="device",
+        device=cuda), params=Transformer(cfg, device=cuda, seed=4))
+    log = []
+    _against_eager(d, log)
+    d.submit("a", [5, 17, 99])
+    d.submit("b", [1, 2])
+    d.submit("c", [7, 7, 3, 12, 40])
+    d.generate(12)
+    assert d.crash_and_recover()["recovered_sessions"] == 3
+    d.generate(12)
+    assert d._graph is not None and d.graph_replays == len(log) > 24
+    tol = 1e-4 if cfg.has_moe else 0.0
+    for got, want, active, apart in log:
+        assert torch.equal(got.argmax(-1)[active], want.argmax(-1)[active])
+        assert float((got - want).abs().max()) <= tol
+        assert apart <= tol
+    assert all(len(s.tokens) > 24 for s in d.sessions.values())
+
+
+def test_serving_graph_capture_refusal_raises(cuda, monkeypatch):
+    """A decode step that cannot be captured (here one that reads a value
+    back to the host mid-step) raises, naming the line that refused, at
+    every decode: the driver never falls back to the eager step."""
+    import repro_torch.serving.server as server
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import reduced
+    from repro_torch.serving import CurpServeDriver, ServeConfig
+
+    real = server.decode_step
+
+    def syncing(cfg, params, batch, cache):
+        if int(batch["active"].sum()) < 0:       # a host sync
+            raise AssertionError
+        return real(cfg, params, batch, cache)
+
+    monkeypatch.setattr(server, "decode_step", syncing)
+    cfg = reduced(ARCHS["llama3.2-1b"])
+    d = CurpServeDriver(cfg, ServeConfig(max_batch=2, max_seq=16,
+                                         device=cuda), seed=0)
+    host = np.array([[3, 0], [1, 0]], np.int32)
+    for _ in range(2):
+        with pytest.raises(RuntimeError,
+                           match=r"cannot be captured.* at server\.py:\d+"):
+            d._decode(host)
+    assert d._graph is None and d.graph_replays == 0
+    assert int(d.cache["pos"].abs().sum()) == 0
+    monkeypatch.setattr(server, "decode_step", real)
+    d._decode(host)
+    assert d.graph_replays == 1 and d.cache["pos"].tolist() == [1, 0]
+
+
 @pytest.mark.parametrize("arch", ["smollm-360m", "hymba-1.5b"])
 def test_reduced_trainer_recovers_bit_exact_on_the_card(cuda, arch,
                                                         tmp_path):

@@ -34,7 +34,7 @@ from repro.models.config import reduced
 from repro.serving.server import CurpServeDriver as RefDriver
 from repro.serving.server import ServeConfig as RefServeConfig
 from repro_torch.kernels import dispatch_count, reset_dispatch_count
-from repro_torch.models import Transformer
+from repro_torch.models import Transformer, cache_tensors
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving import CurpServeDriver, ServeConfig
 
@@ -311,3 +311,145 @@ def test_atomic_step_commit_matches_reference(arch, backend):
     d.generate(8)
     assert _tokens(d) == want
     assert (d.store.fast_commits, d.store.slow_commits) == counts
+
+
+# ---------------------------------------------------------------------------
+# What capturing the decode step as a CUDA graph rests on (the card replays
+# one graph a token; here, on the CPU, the same step runs eagerly)
+# ---------------------------------------------------------------------------
+CAPTURE_ARCHS = ["llama3.2-1b", "hymba-1.5b", "mamba2-130m",
+                 "qwen2-moe-a2.7b"]
+
+
+def _filled_cache(arch, steps=5, batch=3, max_seq=16):
+    """A reduced model and a cache after ``steps`` decode steps of random
+    tokens under a random active mask (every row active at least once)."""
+    import torch
+
+    from repro_torch.models import decode_step, init_decode_cache
+
+    cfg = reduced(ARCHS[arch])
+    model = Transformer(cfg, device="cpu", seed=5)
+    cache = init_decode_cache(cfg, batch, max_seq, device="cpu")
+    rng = np.random.default_rng(9)
+    for i in range(steps):
+        act = rng.integers(0, 2, batch) if i else np.ones(batch, np.int64)
+        decode_step(cfg, model, {
+            "tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (batch, 1))),
+            "active": torch.from_numpy(act).int()}, cache)
+    return cfg, model, cache, rng
+
+
+@pytest.mark.parametrize("arch", CAPTURE_ARCHS)
+def test_inactive_decode_leaves_cache_bit_unchanged(arch):
+    """The capture's precondition: a step with every row inactive (as the
+    driver warms up and captures) leaves every cache tensor bit-unchanged,
+    K/V rings, SSM state and conv window and positions alike."""
+    import torch
+
+    from repro_torch.models import decode_step
+
+    cfg, model, cache, rng = _filled_cache(arch)
+    before = [t.clone() for t in cache_tensors(cache)]
+    assert any(bool(t.ne(0).any()) for t in before[1:])
+    for _ in range(2):
+        decode_step(cfg, model, {
+            "tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (3, 1))),
+            "active": torch.zeros(3, dtype=torch.int32)}, cache)
+    after = cache_tensors(cache)
+    assert len(after) == len(before)
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("arch", CAPTURE_ARCHS)
+def test_decode_step_advances_pos_in_place(arch):
+    """``decode_step`` writes every cache tensor in place, positions too:
+    the same tensors (and storage) before and after, ``pos`` grown by the
+    active mask."""
+    import torch
+
+    from repro_torch.models import decode_step
+
+    cfg, model, cache, rng = _filled_cache(arch)
+    tensors = cache_tensors(cache)
+    ptrs = [t.data_ptr() for t in tensors]
+    pos0 = cache["pos"].clone()
+    act = torch.tensor([1, 0, 1], dtype=torch.int32)
+    _, out = decode_step(cfg, model, {
+        "tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (3, 1))),
+        "active": act}, cache)
+    assert out is cache
+    assert all(a is b for a, b in zip(cache_tensors(cache), tensors))
+    assert [t.data_ptr() for t in cache_tensors(cache)] == ptrs
+    assert cache["pos"].dtype == torch.int32
+    assert torch.equal(cache["pos"], pos0 + act)
+
+
+def _capture_driver(arch):
+    cfg = reduced(ARCHS[arch])
+    d = CurpServeDriver(cfg, ServeConfig(max_batch=3, max_seq=16, f=3,
+                                         sync_batch=8, device="cpu"), seed=2)
+    d.submit("a", [5, 17, 99])
+    d.submit("b", [1, 2])
+    d.generate(3)
+    return d
+
+
+@pytest.mark.parametrize("arch", CAPTURE_ARCHS)
+def test_reset_and_recovery_zero_the_cache_in_place(arch):
+    """``_reset_cache`` and ``crash_and_recover`` keep every cache tensor
+    (a captured graph holds their addresses) and zero it: the recovery's
+    re-prefill starts from an all-zero cache in the same tensors."""
+    import torch
+
+    d = _capture_driver(arch)
+    tensors = cache_tensors(d.cache)
+    ptrs = [t.data_ptr() for t in tensors]
+    assert any(bool(t.ne(0).any()) for t in tensors)
+    seen = []
+    replay = d._replay_tokens
+
+    def first_replay(slot, tokens):
+        if not seen:
+            seen.append([bool(t.eq(0).all()) for t in cache_tensors(d.cache)])
+        replay(slot, tokens)
+
+    d._replay_tokens = first_replay
+    want = {sid: list(s.tokens) for sid, s in d.sessions.items()}
+    rep = d.crash_and_recover()
+    assert rep["recovered_sessions"] == 2
+    assert seen and all(seen[0])
+    assert {sid: list(s.tokens) for sid, s in d.sessions.items()} == want
+    assert all(a is b for a, b in zip(cache_tensors(d.cache), tensors))
+    assert [t.data_ptr() for t in cache_tensors(d.cache)] == ptrs
+    d._reset_cache()
+    assert all(a is b for a, b in zip(cache_tensors(d.cache), tensors))
+    assert all(bool(t.eq(0).all()) for t in tensors)
+    assert d.slots == [None] * 3
+    assert d.graph_replays == 0          # the CPU runs the step eagerly
+    d.submit("c", [4])
+    d.generate(2)
+    assert len(d.sessions["c"].tokens) == 3
+    assert isinstance(d.sessions["c"].tokens[-1], int)
+    assert torch.equal(d.cache["pos"], torch.tensor([2, 0, 0],
+                                                    dtype=torch.int32))
+
+
+@pytest.mark.parametrize("arch", CAPTURE_ARCHS)
+def test_decode_logits_are_the_callers_own(arch):
+    """The logits ``_decode`` returns are not changed by a later step (on
+    the card the graph's output buffer is, so the driver hands out a
+    copy); the greedy tokens it leaves are their argmax."""
+    import torch
+
+    d = _capture_driver(arch)
+    host = np.zeros((2, 3), np.int32)
+    host[:, 0] = (7, 1)
+    first = d._decode(host)
+    assert torch.equal(d._next, first.argmax(-1))
+    kept = first.clone()
+    host[:, 1] = (3, 1)
+    second = d._decode(host)
+    assert torch.equal(first, kept)
+    assert second.shape == first.shape == (3, d.cfg.vocab)
+    assert not torch.equal(first[0], second[0])   # row 0 moved on a token
