@@ -1,0 +1,8 @@
+"""Median host ms of a fused batch's ``fused.master`` stage: the master
+rounds, in op order (the program's span, over the benchmark's
+``update_batch`` calls that the fused driver took)."""
+from perfbench.program_spans import fused_stage_ms
+
+
+def read(run):
+    return fused_stage_ms(run, "fused.master")

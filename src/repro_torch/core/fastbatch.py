@@ -42,6 +42,7 @@ import torch
 
 from .client import Decision
 from .master import DUP, ERROR, SYNCED
+from .telemetry import span
 from .types import Op, OpType, RecordStatus, WitnessMode
 
 _M32 = 0xFFFFFFFF
@@ -221,6 +222,19 @@ class FusedBatchDriver:
         return out
 
     def _try(self, session, ops: Sequence[Op], now: float):
+        # Five stage spans a fused batch: preflight here, then kernel,
+        # settle, master and drain in _run (a declined batch opens only
+        # preflight).
+        with span("fused.preflight"):
+            plan = self._preflight(session, ops)
+        if plan is None:
+            return None
+        return self._run(session, ops, now, *plan)
+
+    def _preflight(self, session, ops: Sequence[Op]):
+        """Eligibility, routing, RIFL prediction and ring ``ensure``:
+        (shard_ids, touched, exec_pred, per_shard_appends), or None when
+        the batch is declined."""
         cluster = self.cluster
         if cluster.gang is None or not ops:
             return None
@@ -281,8 +295,7 @@ class FusedBatchDriver:
             g = cluster.shards[sid]
             g.slot_ops[s] = g.slot_ops.get(s, 0) + 1
 
-        return self._run(session, ops, now, shard_ids, touched, exec_pred,
-                         per_shard_appends)
+        return shard_ids, touched, exec_pred, per_shard_appends
 
     def _run(self, session, ops, now, shard_ids, touched, exec_pred,
              per_shard_appends):
@@ -292,97 +305,107 @@ class FusedBatchDriver:
 
         cluster = self.cluster
         gang = cluster.gang
-        f = len(cluster.shards[touched[0]].witnesses)
-        lane_map = np.zeros((len(cluster.shards), f), np.int32)
-        for g in cluster.shards:
-            for j, w in enumerate(g.witnesses[:f]):
-                lane_map[g.shard_id, j] = w.lane if w.lane is not None else 0
+        with span("fused.kernel"):
+            f = len(cluster.shards[touched[0]].witnesses)
+            lane_map = np.zeros((len(cluster.shards), f), np.int32)
+            for g in cluster.shards:
+                for j, w in enumerate(g.witnesses[:f]):
+                    lane_map[g.shard_id, j] = \
+                        w.lane if w.lane is not None else 0
 
-        pairs = [op.hash_classes()[0] for op in ops]   # eligibility: 1 pair
-        khs = [kh for kh, _c in pairs]
-        k_hi = np.fromiter(((k >> 32) & _M32 for k in khs),
-                           np.uint32, len(khs))
-        k_lo = np.fromiter((k & _M32 for k in khs), np.uint32, len(khs))
-        k_cls = np.fromiter((c for _kh, c in pairs), np.int32, len(pairs))
-        r_hi = np.fromiter((op.rpc_id[0] & _M32 for op in ops),
-                           np.uint32, len(ops))
-        r_lo = np.fromiter((op.rpc_id[1] & _M32 for op in ops),
-                           np.uint32, len(ops))
+            # eligibility: one pair an op
+            pairs = [op.hash_classes()[0] for op in ops]
+            khs = [kh for kh, _c in pairs]
+            k_hi = np.fromiter(((k >> 32) & _M32 for k in khs),
+                               np.uint32, len(khs))
+            k_lo = np.fromiter((k & _M32 for k in khs), np.uint32,
+                               len(khs))
+            k_cls = np.fromiter((c for _kh, c in pairs), np.int32,
+                                len(pairs))
+            r_hi = np.fromiter((op.rpc_id[0] & _M32 for op in ops),
+                               np.uint32, len(ops))
+            r_lo = np.fromiter((op.rpc_id[1] & _M32 for op in ops),
+                               np.uint32, len(ops))
 
-        res = gang_fastpath_batch(
-            gang.table, gang.n_sets, k_hi, k_lo, r_hi, r_lo, exec_pred,
-            np.asarray(cluster.router.slot_map, np.int32), lane_map,
-            self.ring.hi, self.ring.lo, self.ring.tail, self.ring.count,
-            key_cls=k_cls, ring_cls=self.ring.cls, counters=gang.counters,
-        )
-        gang.table = res.table
-        gang.counters = res.counters
-        self.ring.hi = res.ring_hi
-        self.ring.lo = res.ring_lo
-        self.ring.cls = res.ring_cls
-        self.ring.count = np.asarray(res.counts, np.int32).copy()
-        assert list(res.shard_ids) == shard_ids, \
-            "device slot routing diverged from the host router"
-        self.stats["fused_batches"] += 1
-        self.stats["fused_ops"] += len(ops)
+            res = gang_fastpath_batch(
+                gang.table, gang.n_sets, k_hi, k_lo, r_hi, r_lo, exec_pred,
+                np.asarray(cluster.router.slot_map, np.int32), lane_map,
+                self.ring.hi, self.ring.lo, self.ring.tail, self.ring.count,
+                key_cls=k_cls, ring_cls=self.ring.cls,
+                counters=gang.counters,
+            )
+            gang.table = res.table
+            gang.counters = res.counters
+            self.ring.hi = res.ring_hi
+            self.ring.lo = res.ring_lo
+            self.ring.cls = res.ring_cls
+            self.ring.count = np.asarray(res.counts, np.int32).copy()
+            assert list(res.shard_ids) == shard_ids, \
+                "device slot routing diverged from the host router"
+            self.stats["fused_batches"] += 1
+            self.stats["fused_ops"] += len(ops)
 
         # Witness settle: fold each op's per-lane reason codes into mirror +
         # stats + RecordStatus, exactly as DeviceWitness.record_batch does.
-        witnesses = {sid: cluster.shards[sid].witnesses for sid in touched}
-        for ws in witnesses.values():
-            for w in ws:
-                w.stats["kernel_batches"] += 1
-        statuses_per_op: List[List[RecordStatus]] = []
-        for b, op in enumerate(ops):
-            key = (int(res.q_hi[b]), int(res.q_lo[b]))
-            statuses_per_op.append([
-                w._settle(int(res.reasons[b, j]), [key], op.rpc_id, op,
-                          [int(k_cls[b])])
-                for j, w in enumerate(witnesses[shard_ids[b]])
-            ])
+        with span("fused.settle"):
+            witnesses = {sid: cluster.shards[sid].witnesses
+                         for sid in touched}
+            for ws in witnesses.values():
+                for w in ws:
+                    w.stats["kernel_batches"] += 1
+            statuses_per_op: List[List[RecordStatus]] = []
+            for b, op in enumerate(ops):
+                key = (int(res.q_hi[b]), int(res.q_lo[b]))
+                statuses_per_op.append([
+                    w._settle(int(res.reasons[b, j]), [key], op.rpc_id, op,
+                              [int(k_cls[b])])
+                    for j, w in enumerate(witnesses[shard_ids[b]])
+                ])
 
         # Master rounds in op order, the ring's conflict bit standing in for
         # the host window lookup.
-        acks = session.acks()
-        need_drain: Set[int] = set()
-        outcomes: List[OpOutcome] = []
-        for b, op in enumerate(ops):
-            g = cluster.shards[shard_ids[b]]
-            cfg = cluster.config.fetch(g.shard_id)
-            verdict, result = g.master.handle_update(
-                op, cfg.witness_list_version, acks, now,
-                commutes=not bool(res.conflicts[b]),
-            )
-            if verdict == ERROR:
-                # Preflight closed every ERROR path; reaching here means the
-                # invariants broke mid-batch.
-                raise RuntimeError(
-                    f"fused master round failed: {result.error}"
+        with span("fused.master"):
+            acks = session.acks()
+            need_drain: Set[int] = set()
+            outcomes: List[OpOutcome] = []
+            for b, op in enumerate(ops):
+                g = cluster.shards[shard_ids[b]]
+                cfg = cluster.config.fetch(g.shard_id)
+                verdict, result = g.master.handle_update(
+                    op, cfg.witness_list_version, acks, now,
+                    commutes=not bool(res.conflicts[b]),
                 )
-            decision, rtts, fast = g._classify(
-                verdict, result, statuses_per_op[b]
-            )
-            if verdict == SYNCED or decision is Decision.NEED_SYNC:
-                need_drain.add(g.shard_id)
-            session.mark_completed(op.rpc_id)
-            if verdict != DUP:   # dups re-externalize the original, once
-                g.record(op, result.value, session.client_id)
-            outcomes.append(OpOutcome(
-                value=result.value,
-                rtts=rtts,
-                fast_path=fast,
-                synced_path=verdict == SYNCED,
-                witness_accepts=sum(
-                    1 for s in statuses_per_op[b]
-                    if s is RecordStatus.ACCEPTED
-                ),
-            ))
+                if verdict == ERROR:
+                    # Preflight closed every ERROR path; reaching here means
+                    # the invariants broke mid-batch.
+                    raise RuntimeError(
+                        f"fused master round failed: {result.error}"
+                    )
+                decision, rtts, fast = g._classify(
+                    verdict, result, statuses_per_op[b]
+                )
+                if verdict == SYNCED or decision is Decision.NEED_SYNC:
+                    need_drain.add(g.shard_id)
+                session.mark_completed(op.rpc_id)
+                if verdict != DUP:   # dups re-externalize the original, once
+                    g.record(op, result.value, session.client_id)
+                outcomes.append(OpOutcome(
+                    value=result.value,
+                    rtts=rtts,
+                    fast_path=fast,
+                    synced_path=verdict == SYNCED,
+                    witness_accepts=sum(
+                        1 for s in statuses_per_op[b]
+                        if s is RecordStatus.ACCEPTED
+                    ),
+                ))
 
         # Ring bookkeeping + the batched sync/gc tail (one drain per shard).
-        for sid in touched:
-            g = cluster.shards[sid]
-            self.ring.committed(sid, g.master, per_shard_appends[sid])
-            if sid in need_drain or (g.auto_sync and g.master.want_sync):
-                g._drain_syncs()
-            self.ring.advance(sid, g.master)
+        with span("fused.drain"):
+            for sid in touched:
+                g = cluster.shards[sid]
+                self.ring.committed(sid, g.master, per_shard_appends[sid])
+                if sid in need_drain or (g.auto_sync and g.master.want_sync):
+                    g._drain_syncs()
+                self.ring.advance(sid, g.master)
         return outcomes

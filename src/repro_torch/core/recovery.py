@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 from .backup import Backup
 from .config import ConfigManager
 from .master import Master
+from .telemetry import span
 from .witness import Witness
 
 
@@ -56,32 +57,37 @@ def recover_master(
     timed RPCs; the logic and ordering are identical)."""
     # 1. Restore from any backup (they are interchangeable for a fully-synced
     #    prefix; we pick the longest log available).
-    source = max(backups, key=len)
-    log = source.get_log()
-    new_master.restore_from_log(log)
+    with span("recovery.restore"):
+        source = max(backups, key=len)
+        log = source.get_log()
+        new_master.restore_from_log(log)
 
     # 2. Freeze ONE witness (irreversible recovery mode) and replay.
-    reqs = recovery_witness.get_recovery_data(old_master_id)
-    replayed = new_master.replay_from_witness(reqs)
+    with span("recovery.replay"):
+        reqs = recovery_witness.get_recovery_data(old_master_id)
+        replayed = new_master.replay_from_witness(reqs)
 
-    # 3. Bump epoch BEFORE syncing so the new master's syncs pass the fence
-    #    and any zombie old master is rejected from now on.
-    cfg = config.fail_over(shard_id, new_master.master_id, new_witness_ids)
-    new_master.epoch = cfg.epoch
-    new_master.witness_list_version = cfg.witness_list_version
-    for b in backups:
-        b.set_epoch(cfg.epoch)
-
-    # 4. Sync replayed ops to backups, then open fresh witnesses.
-    req = new_master.begin_sync()
-    if req is not None:
+    with span("recovery.sync"):
+        # 3. Bump epoch BEFORE syncing so the new master's syncs pass the
+        #    fence and any zombie old master is rejected from now on.
+        cfg = config.fail_over(shard_id, new_master.master_id,
+                               new_witness_ids)
+        new_master.epoch = cfg.epoch
+        new_master.witness_list_version = cfg.witness_list_version
         for b in backups:
-            resp = b.handle_sync(req)
-            assert resp.ok, "fresh-epoch sync must not be fenced"
-        new_master.complete_sync()
+            b.set_epoch(cfg.epoch)
 
-    for w in new_witnesses:
-        w.start(new_master.master_id)
+        # 4. Sync replayed ops to backups, then open fresh witnesses.
+        req = new_master.begin_sync()
+        if req is not None:
+            for b in backups:
+                resp = b.handle_sync(req)
+                assert resp.ok, "fresh-epoch sync must not be fenced"
+            new_master.complete_sync()
+
+    with span("recovery.witnesses"):
+        for w in new_witnesses:
+            w.start(new_master.master_id)
 
     return RecoveryReport(
         restored_log_entries=len(log),

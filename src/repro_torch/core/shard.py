@@ -51,6 +51,7 @@ from .client import ClientSession, Decision, combine_decisions, decide
 from .config import ConfigManager, WitnessGeometry
 from .master import DUP, ERROR, FAST, SYNCED, Master
 from .recovery import RecoveryReport, recover_master
+from .telemetry import span
 from .txn import (
     CoordinatorCrash,
     TxnCoordinator,
@@ -298,19 +299,21 @@ class ShardGroup:
     ) -> Tuple[str, ExecResult, ClusterConfig]:
         """Master half of one update round, retrying stale-config errors
         (§3.6).  Shared by the per-op and batched paths."""
-        for _attempt in range(4):
-            cfg = self.config.fetch(self.shard_id)
-            verdict, result = self.master.handle_update(
-                op, cfg.witness_list_version, acks, now
-            )
-            if verdict != ERROR:
-                return verdict, result, cfg
-            if result.error == "TXN_PENDING":
-                # Blocked by an undecided transaction intent: retrying at
-                # the master is useless — the caller must resolve the
-                # transaction (the blocking spec rides in result.value).
-                raise TxnPending(result.value)
-        raise RuntimeError("update retries exhausted")
+        with span("shard.master_round"):
+            for _attempt in range(4):
+                cfg = self.config.fetch(self.shard_id)
+                verdict, result = self.master.handle_update(
+                    op, cfg.witness_list_version, acks, now
+                )
+                if verdict != ERROR:
+                    return verdict, result, cfg
+                if result.error == "TXN_PENDING":
+                    # Blocked by an undecided transaction intent: retrying
+                    # at the master is useless — the caller must resolve
+                    # the transaction (the blocking spec rides in
+                    # result.value).
+                    raise TxnPending(result.value)
+            raise RuntimeError("update retries exhausted")
 
     @staticmethod
     def _classify(verdict: str, result: ExecResult,
@@ -336,40 +339,44 @@ class ShardGroup:
             if i in self._dropped_witnesses:
                 statuses.append(RecordStatus.REJECTED)  # timeout == reject
             else:
-                statuses.append(
-                    w.record(cfg.master_id, op.key_hashes(), op.rpc_id, op)
-                )
+                with span("witness.record"):
+                    statuses.append(w.record(cfg.master_id, op.key_hashes(),
+                                             op.rpc_id, op))
         return verdict, result, statuses
 
     def update(self, session: ClientSession, op: Op, now: float = 0.0):
         """Full CURP update; returns an OpOutcome (see local.py)."""
         from .local import OpOutcome
 
-        verdict, result, statuses = self.attempt_update(op, session.acks(), now)
-        decision, rtts, fast = self._classify(verdict, result, statuses)
+        with span("shard.update"):
+            verdict, result, statuses = self.attempt_update(
+                op, session.acks(), now)
+            decision, rtts, fast = self._classify(verdict, result, statuses)
 
-        if verdict == SYNCED or decision is Decision.NEED_SYNC:
-            # Conflict path / slow path: sync before the reply externalizes.
-            self._drain_syncs()
+            if verdict == SYNCED or decision is Decision.NEED_SYNC:
+                # Conflict path / slow path: sync before the reply
+                # externalizes.
+                self._drain_syncs()
 
-        if self.auto_sync and self.master.want_sync:
-            self._drain_syncs()
+            if self.auto_sync and self.master.want_sync:
+                self._drain_syncs()
 
-        session.mark_completed(op.rpc_id)
-        if verdict != DUP:
-            # A RIFL-duplicate retry re-externalizes the ORIGINAL completion;
-            # the op already has its one history entry — recording again
-            # would demand two linearization points for one invocation.
-            self.record(op, result.value, session.client_id)
-        return OpOutcome(
-            value=result.value,
-            rtts=rtts,
-            fast_path=fast,
-            synced_path=verdict == SYNCED,
-            witness_accepts=sum(
-                1 for s in statuses if s is RecordStatus.ACCEPTED
-            ),
-        )
+            session.mark_completed(op.rpc_id)
+            if verdict != DUP:
+                # A RIFL-duplicate retry re-externalizes the ORIGINAL
+                # completion; the op already has its one history entry —
+                # recording again would demand two linearization points
+                # for one invocation.
+                self.record(op, result.value, session.client_id)
+            return OpOutcome(
+                value=result.value,
+                rtts=rtts,
+                fast_path=fast,
+                synced_path=verdict == SYNCED,
+                witness_accepts=sum(
+                    1 for s in statuses if s is RecordStatus.ACCEPTED
+                ),
+            )
 
     def update_batch(self, session: ClientSession, ops: Sequence[Op],
                      now: float = 0.0) -> List["OpOutcome"]:
@@ -526,47 +533,50 @@ class ShardGroup:
     # ------------------------------------------------------------------ syncs
     def _drain_syncs(self) -> None:
         """Run batched backup syncs + witness gc until quiescent (§4.4, §3.5)."""
-        while True:
-            req = self.master.begin_sync()
-            if req is None:
-                return
-            ok = True
-            for b in self.backups:
-                resp = b.handle_sync(req)
-                ok = ok and resp.ok
-            if not ok:
-                self.master.abort_sync()
-                return
-            gc_entries = self.master.complete_sync()
-            live = [w for i, w in enumerate(self.witnesses)
-                    if i not in self._dropped_witnesses]
-            for resp in self._gc_witnesses(live, gc_entries):
-                # §4.5: retry suspected uncollected garbage through RIFL.
-                for op in resp.stale_requests:
-                    self.master.handle_update(
-                        op,
-                        self.config.fetch(self.shard_id).witness_list_version,
-                        (), 0.0,
-                    )
+        with span("shard.drain"):
+            while True:
+                req = self.master.begin_sync()
+                if req is None:
+                    return
+                with span("shard.sync_round"):
+                    ok = True
+                    for b in self.backups:
+                        resp = b.handle_sync(req)
+                        ok = ok and resp.ok
+                    if not ok:
+                        self.master.abort_sync()
+                        return
+                    gc_entries = self.master.complete_sync()
+                    live = [w for i, w in enumerate(self.witnesses)
+                            if i not in self._dropped_witnesses]
+                    for resp in self._gc_witnesses(live, gc_entries):
+                        # §4.5: retry suspected uncollected garbage through
+                        # RIFL.
+                        for op in resp.stale_requests:
+                            cfg = self.config.fetch(self.shard_id)
+                            self.master.handle_update(
+                                op, cfg.witness_list_version, (), 0.0)
 
     def _gc_witnesses(self, witnesses, gc_entries):
         """One sync round's witness gc: device witnesses sharing a gang
         clear + age in ONE stacked dispatch (lane-expanded entries); any
         remaining witness gc's individually.  Responses in witness order."""
-        if self.witness_backend == "device" and len(witnesses) > 1:
-            from .device_witness import DeviceWitness, gc_many
-            from .types import WitnessMode
+        with span("witness.gc_round"):
+            if self.witness_backend == "device" and len(witnesses) > 1:
+                from .device_witness import DeviceWitness, gc_many
+                from .types import WitnessMode
 
-            gang = self.gang
-            stacked = [w for w in witnesses
-                       if isinstance(w, DeviceWitness)
-                       and w.mode is WitnessMode.NORMAL and w.gang is gang]
-            if len(stacked) > 1:
-                resp = dict(zip((id(w) for w in stacked),
-                                gc_many(stacked, gc_entries)))
-                return [resp[id(w)] if id(w) in resp else w.gc(gc_entries)
-                        for w in witnesses]
-        return [w.gc(gc_entries) for w in witnesses]
+                gang = self.gang
+                stacked = [w for w in witnesses
+                           if isinstance(w, DeviceWitness)
+                           and w.mode is WitnessMode.NORMAL
+                           and w.gang is gang]
+                if len(stacked) > 1:
+                    resp = dict(zip((id(w) for w in stacked),
+                                    gc_many(stacked, gc_entries)))
+                    return [resp[id(w)] if id(w) in resp
+                            else w.gc(gc_entries) for w in witnesses]
+            return [w.gc(gc_entries) for w in witnesses]
 
     def sync_now(self) -> None:
         self.master.want_sync = True
@@ -589,7 +599,8 @@ class ShardGroup:
         live = [i for i in range(self.f) if i not in self._dropped_witnesses]
         assert live, "no witness reachable: recovery must wait (§3.3)"
         recovery_witness = self.witnesses[live[0]]
-        new_witnesses = [self._new_witness() for _ in range(self.f)]
+        with span("recovery.new_witnesses"):
+            new_witnesses = [self._new_witness() for _ in range(self.f)]
         new_ids = tuple(self.alloc_id() for _ in range(self.f))
         report = recover_master(
             shard_id=self.shard_id,
@@ -877,11 +888,6 @@ class ShardedCluster:
             from .fastbatch import FusedBatchDriver
 
             self._fused = FusedBatchDriver(self)
-        # Optional flight recorder (repro.core.telemetry.Tracer): when
-        # attached, update_batch emits wall-clock batch spans + per-op
-        # sampled spans keyed by RIFL id.
-        self.tracer = None
-        self._batch_seq = 0
 
     def _node_id(self) -> int:
         self._next_node_id += 1
@@ -967,36 +973,6 @@ class ShardedCluster:
         window conflict check, and every shard's every witness record.  The
         driver declines (returns None) whenever any op or shard falls off
         its eligibility envelope, and the per-shard path below runs."""
-        if self.tracer is not None:
-            return self._update_batch_traced(session, ops, now)
-        return self._update_batch(session, ops, now)
-
-    def _update_batch_traced(self, session, ops, now):
-        """Wall-clock batch + sampled per-op spans around the real path
-        (times in µs since an arbitrary perf_counter origin)."""
-        import time as _time
-
-        t0 = _time.perf_counter()
-        fused_before = (self._fused.stats["fused_batches"]
-                        if self._fused is not None else 0)
-        out = self._update_batch(session, ops, now)
-        t1 = _time.perf_counter()
-        tr = self.tracer
-        self._batch_seq += 1
-        fused = (self._fused is not None
-                 and self._fused.stats["fused_batches"] > fused_before)
-        tr.span(("batch", self._batch_seq), "update_batch", t0 * 1e6,
-                (t1 - t0) * 1e6, actor="cluster",
-                args={"ops": len(ops), "fused": fused}, force=True)
-        per_op = (t1 - t0) * 1e6 / max(1, len(ops))
-        for i, op in enumerate(ops):
-            tr.span(op.rpc_id, "op", t0 * 1e6 + i * per_op, per_op,
-                    actor="cluster",
-                    status="fast" if out[i].fast_path else "slow")
-        return out
-
-    def _update_batch(self, session: ShardedClientSession, ops: Sequence[Op],
-                      now: float = 0.0) -> List["OpOutcome"]:
         if self._fused is not None:
             fused = self._fused.try_update_batch(session, ops, now)
             if fused is not None:

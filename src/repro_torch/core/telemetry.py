@@ -1,7 +1,7 @@
-"""Flight recorder: metrics registry + causal RPC tracing for the CURP stack.
+"""Flight recorder: metrics registry, wall-clock spans and simulated-time
+tracing for the CURP stack.
 
-Two cooperating facilities, both dependency-free and cheap enough to stay on
-by default:
+Three facilities, each cheap enough to stay on by default:
 
 * ``MetricsRegistry`` — named ``Counter``/``Gauge``/``Histogram`` instruments.
   Histograms are log-bucketed (HDR-style: 2^SUB sub-buckets per power-of-two
@@ -12,14 +12,21 @@ by default:
   (``get_registry()``); ``snapshot()`` turns the whole registry into a
   JSON-able dict for BENCH merging.
 
-* ``Tracer`` — causal RPC spans keyed by RIFL id ``(client_id, seq)``.  The
-  client's issue..complete window is the root span; witness records, master
-  speculative execution, batched syncs, and gc rounds attach as children (or
-  as instant detour events: sheds, NOT_OWNER redirects, timeouts).  Spans
-  carry explicit µs timestamps supplied by the caller (the discrete-event
-  sim passes ``sim.now``; wall-clock callers pass ``time.perf_counter()``
-  µs), and ``export_chrome()`` writes Chrome-trace/Perfetto JSON so a 1-RTT
-  vs 2-RTT write is visually attributable.
+* ``span(name)`` — the port's wall-clock spans.  Each layer boundary of the
+  store's hot path, recovery and the serving step opens one; while a
+  ``torch.profiler`` is running it is a ``record_function``, so the span
+  lands in the profiler's trace on the same clock as the device's work,
+  and otherwise it is one shared null context (one check, no allocation).
+  There is no switch: the spans record exactly when a profiler runs.
+
+* ``Tracer`` — causal RPC spans keyed by RIFL id ``(client_id, seq)``, in
+  the discrete-event sim's simulated time.  The client's issue..complete
+  window is the root span; witness records, master speculative execution,
+  batched syncs, and gc rounds attach as children (or as instant detour
+  events: sheds, NOT_OWNER redirects, timeouts).  Spans carry the explicit
+  µs timestamps the sim supplies (``sim.now``), and ``export_chrome()``
+  writes Chrome-trace/Perfetto JSON so a 1-RTT vs 2-RTT write is visually
+  attributable.
 
 Sampling: ``Tracer(sample=0.01)`` keeps 1% of traces, chosen by a
 deterministic hash of the trace id (NOT Python's randomized ``hash``), so
@@ -34,14 +41,17 @@ measure the (near-zero) registry cost on the device fast path.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+import torch
+
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "Span", "Tracer",
     "get_registry", "registry", "reset_registry", "enable", "disable",
-    "enabled",
+    "enabled", "span",
 ]
 
 
@@ -292,7 +302,23 @@ def enabled() -> bool:
 
 
 # --------------------------------------------------------------------------
-# Tracing
+# Wall-clock spans (on the profiler's clock)
+# --------------------------------------------------------------------------
+_profiler_enabled = torch.autograd._profiler_enabled
+_NULL_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span named ``name`` around a ``with`` block: a
+    ``torch.profiler.record_function`` while a profiler is running (the
+    trace's host user annotations), else one shared null context."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL_SPAN
+
+
+# --------------------------------------------------------------------------
+# Tracing (simulated time)
 # --------------------------------------------------------------------------
 def _mix_id(tid: Any) -> int:
     """Deterministic 64-bit mix of a trace id (Python's ``hash`` is

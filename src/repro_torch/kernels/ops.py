@@ -39,6 +39,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core.telemetry import span
 from . import ref
 from .build import CudaKernel, I, P
 from .ref import GangTable, N_REASON_CODES, WitnessTable
@@ -512,8 +513,10 @@ def _to_device(device: torch.device, *arrays):
 
 
 def _to_host(*tensors):
-    """Bring int32 tensors to numpy in ONE copy."""
-    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    """Bring int32 tensors to numpy in ONE copy: the blocking wait for the
+    device that every op ends in (one ``kernels.host_wait`` span a call)."""
+    with span("kernels.host_wait"):
+        flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
     out, off = [], 0
     for t in tensors:
         n = t.numel()

@@ -27,6 +27,7 @@ from ..core import (
     TxnStatus,
     WitnessGeometry,
 )
+from ..core.telemetry import span
 
 
 @dataclass
@@ -122,13 +123,14 @@ class CurpSessionStore:
         distinct keys, so a multi-session batch stays on the 1-RTT path."""
         if not states:
             return
-        ops = [
-            self.client.op_set(
-                self._key(s.session_id),
-                json.dumps({"tokens": s.tokens, "done": s.done}),
-            )
-            for s in states
-        ]
+        with span("serve.commit.encode"):
+            ops = [
+                self.client.op_set(
+                    self._key(s.session_id),
+                    json.dumps({"tokens": s.tokens, "done": s.done}),
+                )
+                for s in states
+            ]
         outs = self.cluster.update_batch(self.client, ops)
         for s, out in zip(states, outs):
             self._count_commit(s.session_id)

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core import WitnessGeometry
-from ..core.telemetry import get_registry
+from ..core.telemetry import get_registry, span
 from ..models.config import ModelConfig
 from ..models.transformer import (
     Transformer,
@@ -97,7 +97,6 @@ class CurpServeDriver:
         self.tokens_served = 0
         reg = get_registry()
         self._m_tokens = reg.counter("serve.tokens")
-        self._h_commit = reg.histogram("serve.commit_sessions")
         self._m_recoveries = reg.counter("serve.recoveries")
         self._m_replayed = reg.counter("serve.replayed_ops")
 
@@ -215,38 +214,39 @@ class CurpServeDriver:
     # -- decoding -----------------------------------------------------------------
     def step(self) -> Dict[str, int]:
         """One batched decode step for every live slot; commit via CURP."""
-        live = [(i, sid) for i, sid in enumerate(self.slots) if sid]
-        if not live:
-            return {}
-        host = np.zeros((2, self.serve.max_batch), np.int32)
-        last, active = host
-        for i, sid in live:
-            last[i] = self.sessions[sid].tokens[-1]
-            active[i] = 1
-        self._decode(host)
-        out: Dict[str, int] = {}
-        nxt = self._next.tolist()          # one copy back
-        to_commit: List[SessionState] = []
-        for i, sid in live:
-            tok = nxt[i]
-            s = self.sessions[sid]
-            s.tokens.append(tok)
-            out[sid] = tok
-            self.tokens_served += 1
-            self._m_tokens.inc()
-            if len(s.tokens) % self.serve.commit_every == 0:
-                to_commit.append(s)
-        # One batched CURP round for the whole decode step: distinct session
-        # keys commute, so the batch completes via each shard's 1-RTT path.
-        # With atomic_step_commit the step commits as ONE mini-transaction
-        # instead (all-or-nothing across shards; single-shard steps keep the
-        # 1-RTT short-circuit).
-        self._h_commit.record(len(to_commit))
-        if self.serve.atomic_step_commit:
-            self.store.txn(to_commit)
-        else:
-            self.store.commit_batch(to_commit)
-        return out
+        with span("serve.step"):
+            live = [(i, sid) for i, sid in enumerate(self.slots) if sid]
+            if not live:
+                return {}
+            host = np.zeros((2, self.serve.max_batch), np.int32)
+            last, active = host
+            for i, sid in live:
+                last[i] = self.sessions[sid].tokens[-1]
+                active[i] = 1
+            self._decode(host)
+            out: Dict[str, int] = {}
+            nxt = self._next.tolist()          # one copy back
+            to_commit: List[SessionState] = []
+            for i, sid in live:
+                tok = nxt[i]
+                s = self.sessions[sid]
+                s.tokens.append(tok)
+                out[sid] = tok
+                self.tokens_served += 1
+                self._m_tokens.inc()
+                if len(s.tokens) % self.serve.commit_every == 0:
+                    to_commit.append(s)
+            # One batched CURP round for the whole decode step: distinct
+            # session keys commute, so the batch completes via each shard's
+            # 1-RTT path.  With atomic_step_commit the step commits as ONE
+            # mini-transaction instead (all-or-nothing across shards;
+            # single-shard steps keep the 1-RTT short-circuit).
+            with span("serve.commit"):
+                if self.serve.atomic_step_commit:
+                    self.store.txn(to_commit)
+                else:
+                    self.store.commit_batch(to_commit)
+            return out
 
     def generate(self, n_tokens: int) -> None:
         for _ in range(n_tokens):

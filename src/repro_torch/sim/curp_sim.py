@@ -1414,7 +1414,6 @@ def run_batched_throughput(
     witness_backend: str = "python",
     geometry=None,
     workload=None,
-    tracer=None,
     device: str = "cuda",
 ) -> BatchedRunResult:
     """Drive a real ShardedCluster through the batched client path
@@ -1438,7 +1437,6 @@ def run_batched_throughput(
         n_shards=n_shards, f=f, seed=seed, witness_backend=witness_backend,
         geometry=geometry, device=device,
     )
-    cluster.tracer = tracer
     session = cluster.new_client()
     wl = workload or BatchedWorkload(
         batch_size=batch_size, conflict_frac=conflict_frac, seed=seed
