@@ -23,8 +23,10 @@ consulted to decide accept/reject/gc outcomes on the hot path.
 Many witness instances share one device-resident **gang**
 (:class:`WitnessGang`): all shards' x all witnesses' tables stacked into a
 single [n_lanes*S, W] array, so a routed cross-shard batch records at every
-target lane in ONE dispatch (repro_torch.kernels.gang_fastpath_batch) and a
-sync round gc's every witness of a shard in ONE dispatch (``gc_many``).
+target lane in ONE dispatch (repro_torch.kernels.gang_fastpath_batch), a
+lone op records at every witness of a shard in ONE dispatch
+(``record_many``) and a sync round gc's every witness of a shard in ONE
+dispatch (``gc_many``).
 
 Set placement differs from the Python witness (keyhash2x32-mixed low lane
 masked by S-1, vs ``kh % n_sets`` on the raw 64-bit hash), so occupancy
@@ -345,26 +347,7 @@ class DeviceWitness:
         whether the op accepts or rejects (the kernel leaves the table
         bit-identical on reject, so no rollback gc).  Dup/conflict verdicts
         come from the kernel-held rpc lanes — no host mirror input."""
-        from ..kernels import gang_record_groups
-
-        pairs = _op_pairs(key_hashes, request)
-        hi, lo = _lanes([kh for kh, _c in pairs])
-        kcls = np.fromiter((c for _kh, c in pairs), np.int32, len(pairs))
-        res = gang_record_groups(
-            self.gang.table, self.n_sets,
-            hi[None, :], lo[None, :], np.ones((1, len(pairs)), np.int32),
-            np.array([self.lane], np.int32),
-            np.array([rpc_id[0] & _M32], np.uint32),
-            np.array([rpc_id[1] & _M32], np.uint32),
-            kcls[None, :], counters=self.gang.counters,
-        )
-        self.gang.table = res.table
-        self.gang.counters = res.counters
-        self.stats["kernel_batches"] += 1
-        keys = [(int(res.q_hi[0, k]), int(res.q_lo[0, k]))
-                for k in range(len(pairs))]
-        return self._settle(int(res.reasons[0]), keys, rpc_id, request,
-                            [c for _kh, c in pairs])
+        return _record_at([self], key_hashes, rpc_id, request)[0]
 
     def _record_keys_rollback(self, key_hashes: Tuple[int, ...], rpc_id: RpcId,
                               request: Op) -> RecordStatus:
@@ -482,6 +465,71 @@ class DeviceWitness:
     @property
     def occupancy(self) -> int:
         return sum(len(by_rpc) for by_rpc in self._held.values())
+
+
+def record_many(witnesses: Sequence[DeviceWitness], master_id: int,
+                key_hashes: Tuple[int, ...], rpc_id: RpcId,
+                request: Op) -> List[RecordStatus]:
+    """Record one op at MANY witnesses of one gang in ONE dispatch.
+
+    Every witness that ``record`` would not reject by mode becomes one group
+    of the grouped kernel: the op's keys, classes and rpc at the witness's
+    lane.  Lanes are disjoint, so each group resolves exactly as that
+    witness's own ``record`` would; a witness not in NORMAL mode, or serving
+    another master, rejects without a group.  Returns one status per
+    witness, in order.
+    """
+    from .telemetry import registry
+
+    out = [RecordStatus.REJECTED] * len(witnesses)
+    live = []
+    for i, w in enumerate(witnesses):
+        if w.mode is WitnessMode.NORMAL and master_id == w.master_id:
+            live.append(i)
+        else:
+            w.stats["rejects_mode"] += 1
+    if live:
+        got = _record_at([witnesses[i] for i in live], key_hashes, rpc_id,
+                         request)
+        for i, st in zip(live, got):
+            out[i] = st
+        registry().counter("witness.grouped_records").inc(len(live))
+    return out
+
+
+def _record_at(witnesses: Sequence[DeviceWitness],
+               key_hashes: Tuple[int, ...], rpc_id: RpcId,
+               request: Op) -> List[RecordStatus]:
+    """One op's record at each of ``witnesses`` (NORMAL, one gang): a group
+    a witness at its lane, ONE grouped-kernel dispatch; each witness
+    settles its own group."""
+    from ..kernels import gang_record_groups
+
+    gang = witnesses[0].gang
+    assert all(w.gang is gang for w in witnesses), \
+        "witnesses must share a gang"
+    pairs = _op_pairs(key_hashes, request)
+    G, K = len(witnesses), len(pairs)
+    hi, lo = _lanes([kh for kh, _c in pairs])
+    classes = [c for _kh, c in pairs]
+    res = gang_record_groups(
+        gang.table, gang.n_sets, np.tile(hi, (G, 1)), np.tile(lo, (G, 1)),
+        np.ones((G, K), np.int32),
+        np.fromiter((w.lane for w in witnesses), np.int32, G),
+        np.full(G, rpc_id[0] & _M32, np.uint32),
+        np.full(G, rpc_id[1] & _M32, np.uint32),
+        np.tile(np.asarray(classes, np.int32).reshape(1, K), (G, 1)),
+        counters=gang.counters,
+    )
+    gang.table = res.table
+    gang.counters = res.counters
+    out = []
+    for g, w in enumerate(witnesses):
+        w.stats["kernel_batches"] += 1
+        keys = [(int(res.q_hi[g, k]), int(res.q_lo[g, k])) for k in range(K)]
+        out.append(w._settle(int(res.reasons[g]), keys, rpc_id, request,
+                             classes))
+    return out
 
 
 def gc_many(witnesses: Sequence[DeviceWitness],

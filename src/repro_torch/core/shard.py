@@ -334,15 +334,36 @@ class ShardGroup:
         """One 1-RTT round: update RPC to the master + parallel witness
         records.  Retries internally on stale-config errors (§3.6)."""
         verdict, result, cfg = self._master_round(op, acks, now)
-        statuses: List[RecordStatus] = []
-        for i, w in enumerate(self.witnesses):
-            if i in self._dropped_witnesses:
-                statuses.append(RecordStatus.REJECTED)  # timeout == reject
-            else:
+        return verdict, result, self._record_witnesses(cfg.master_id, op)
+
+    def _record_witnesses(self, master_id: int,
+                          op: Op) -> List[RecordStatus]:
+        """One op's parallel witness records, statuses in witness order: the
+        live device witnesses sharing the group's gang record in ONE grouped
+        dispatch (``record_many``), any other live witness on its own; a
+        dropped witness rejects with no record (timeout == reject)."""
+        statuses = [RecordStatus.REJECTED] * len(self.witnesses)
+        live = [i for i in range(len(self.witnesses))
+                if i not in self._dropped_witnesses]
+        if self.witness_backend == "device":
+            from .device_witness import DeviceWitness, record_many
+
+            grouped = [i for i in live
+                       if isinstance(self.witnesses[i], DeviceWitness)
+                       and self.witnesses[i].gang is self.gang]
+            if grouped:
                 with span("witness.record"):
-                    statuses.append(w.record(cfg.master_id, op.key_hashes(),
-                                             op.rpc_id, op))
-        return verdict, result, statuses
+                    got = record_many([self.witnesses[i] for i in grouped],
+                                      master_id, op.key_hashes(), op.rpc_id,
+                                      op)
+                for i, st in zip(grouped, got):
+                    statuses[i] = st
+                live = [i for i in live if i not in grouped]
+        for i in live:
+            with span("witness.record"):
+                statuses[i] = self.witnesses[i].record(
+                    master_id, op.key_hashes(), op.rpc_id, op)
+        return statuses
 
     def update(self, session: ClientSession, op: Op, now: float = 0.0):
         """Full CURP update; returns an OpOutcome (see local.py)."""
@@ -486,14 +507,7 @@ class ShardGroup:
                 blocking=result.value if result.error == "TXN_LOCKED"
                 else None,
             )
-        statuses: List[RecordStatus] = []
-        for i, w in enumerate(self.witnesses):
-            if i in self._dropped_witnesses:
-                statuses.append(RecordStatus.REJECTED)
-            else:
-                statuses.append(
-                    w.record(cfg.master_id, op.key_hashes(), op.rpc_id, op)
-                )
+        statuses = self._record_witnesses(cfg.master_id, op)
         decision, rtts, fast = self._classify(verdict, result, statuses)
         if verdict == SYNCED or decision is Decision.NEED_SYNC:
             # Slow path: the intent reaches the backups before the vote is

@@ -18,7 +18,9 @@ import repro.core as jcore
 import repro_torch.core as tcore
 from repro_torch.core import DeviceWitness, ShardedCluster
 from repro_torch.core.client import ClientSession
-from repro_torch.core.device_witness import WitnessGang, gc_many
+from repro_torch.core.device_witness import WitnessGang, gc_many, record_many
+from repro_torch.core.telemetry import registry
+from repro_torch.core.txn import prepare_op
 from repro_torch.core.types import RecordStatus
 from repro_torch.kernels import dispatch_count, reset_dispatch_count
 
@@ -289,6 +291,144 @@ def test_gc_many_one_dispatch_matches_per_witness():
         [r.stale_requests for r in resps2]
     assert [w.occupancy for w in ws] == [w.occupancy for w in ws2] \
         == [4, 4, 4]
+
+
+def _twin_witnesses(n_sets, n_ways, f=3):
+    gang = WitnessGang(n_sets, n_ways, n_lanes=4, device="cpu")
+    ws = [DeviceWitness(n_sets, n_ways, gang=gang) for _ in range(f)]
+    for w in ws:
+        w.start(master_id=1)
+    return gang, ws
+
+
+def _lone_stream(seed, n_ops=48):
+    """(op, master_id, freeze) steps: SETs on a few hot keys, merge-lattice
+    INCR/SADD/APPEND/MAX, MSET and HMSET of 2-4 keys, RIFL retries of
+    earlier ops, and now and then a wrong master id; ``freeze`` puts one
+    witness into RECOVERY or ENDS it before the step."""
+    rng = random.Random(seed)
+    s = ClientSession(client_id=40 + seed)
+    hot = [f"h{i}" for i in range(5)]
+    cold = iter(f"c{seed}_{i}" for i in range(10**6))
+
+    def key():
+        return rng.choice(hot) if rng.random() < 0.6 else next(cold)
+
+    made, steps = [], []
+    for step in range(n_ops):
+        r = rng.random()
+        if step == 1 or (made and r < 0.15):
+            op = made[-1] if step == 1 or rng.random() < 0.5 \
+                else rng.choice(made)
+        elif r < 0.35:
+            op = s.op_set(key(), step)
+        elif r < 0.55:
+            op = rng.choice([s.op_incr(key()), s.op_sadd(key(), step),
+                             s.op_append(key(), "x"), s.op_max(key(), step)])
+        elif r < 0.8:
+            op = s.op_mset([(key(), step)
+                            for _ in range(rng.randint(2, 4))])
+        else:
+            op = s.op_hmset(key(), [(f"f{rng.randrange(4)}", step)
+                                    for _ in range(rng.randint(1, 3))])
+        made.append(op)
+        freeze = {n_ops // 2: "recovery", 3 * n_ops // 4: "end"}.get(step)
+        steps.append((op, 2 if rng.random() < 0.08 else 1, freeze))
+    return steps
+
+
+def _witness_state(gang, ws):
+    return ([p.clone() for p in gang.table], gang.counters.clone(),
+            [dict(w.stats) for w in ws],
+            [{k: dict(v) for k, v in w._held.items()} for w in ws],
+            [w.mode for w in ws])
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_record_many_matches_sequential_records(seed):
+    """One grouped record at f = 3 witnesses equals three sequential
+    ``record`` calls on a twin gang: statuses, every table plane, the
+    counter plane, stats and the held mirror, at a geometry small enough
+    to reject FULL, through RIFL retries, multi-key and merge-lattice ops,
+    a wrong master id and witnesses in RECOVERY and ENDED."""
+    g_many, many = _twin_witnesses(4, 2)
+    g_seq, seq = _twin_witnesses(4, 2)
+    got_reasons = set()
+    for op, master_id, freeze in _lone_stream(seed):
+        if freeze == "recovery":
+            many[1].get_recovery_data(1)
+            seq[1].get_recovery_data(1)
+        elif freeze == "end":
+            many[2].end()
+            seq[2].end()
+        reset_dispatch_count()
+        got = record_many(many, master_id, op.key_hashes(), op.rpc_id, op)
+        live = master_id == 1 and many[0].mode.value == "NORMAL"
+        assert dispatch_count() == (1 if live else 0)
+        want = [w.record(master_id, op.key_hashes(), op.rpc_id, op)
+                for w in seq]
+        assert got == want
+        a, b = _witness_state(g_many, many), _witness_state(g_seq, seq)
+        for x, y in zip(a[0] + [a[1]], b[0] + [b[1]]):
+            assert torch.equal(x, y)
+        assert a[2:] == b[2:]
+        got_reasons |= {k for k in _STAT_OF.values()
+                        if many[0].stats[k]}
+    assert got_reasons == set(_STAT_OF.values())
+    assert many[0].stats["rejects_mode"] > 0
+    assert many[1].stats["rejects_mode"] > many[0].stats["rejects_mode"]
+
+
+def _grouped_records():
+    return registry().counter("witness.grouped_records").value
+
+
+@pytest.mark.parametrize("backend, dropped, grouped", [
+    ("device", (), 3), ("device", (1,), 2), ("python", (), 0)])
+def test_lone_update_is_one_grouped_record(backend, dropped, grouped):
+    """A lone update that runs no sync costs ONE grouped-record dispatch
+    on the device backend and counts one grouped record a live witness; a
+    dropped witness rejects unrecorded; the Python backend records one
+    witness at a time."""
+    c = ShardedCluster(n_shards=2, f=3, witness_backend=backend, seed=7,
+                       sync_batch=1000, geometry=tcore.WitnessGeometry(64, 4),
+                       device="cpu")
+    s = c.new_client()
+    c.update(s, s.op_set("warm", "v"))
+    op = s.op_set("lone", "v")
+    group = c.shards[c.shard_of("lone")]
+    for i in dropped:
+        group.witness_drop(i)
+    sub = s.session_for(group.shard_id)
+    before = _grouped_records()
+    reset_dispatch_count()
+    if dropped:     # a reject needs a sync before the reply: attempt only
+        _verdict, _result, statuses = group.attempt_update(op, sub.acks())
+        assert [st is RecordStatus.ACCEPTED for st in statuses] == \
+            [i not in dropped for i in range(3)]
+    else:
+        out = group.update(sub, op)
+        assert out.fast_path and out.witness_accepts == 3
+    assert dispatch_count() == (1 if backend == "device" else 0)
+    assert _grouped_records() - before == grouped
+
+
+def test_txn_prepare_leg_is_one_grouped_record():
+    c = ShardedCluster(n_shards=2, f=3, witness_backend="device", seed=7,
+                       geometry=tcore.WitnessGeometry(64, 4), device="cpu")
+    s = c.new_client()
+    keys = [f"t{i}" for i in range(16)]
+    assert len({c.shard_of(k) for k in keys}) == 2
+    spec = s.txn_spec([(k, 1) for k in keys])
+    part = spec.parts[0]
+    group = c.shards[part.shard_id]
+    before = _grouped_records()
+    reset_dispatch_count()
+    vote = group.txn_prepare(s.session_for(part.shard_id),
+                             prepare_op(spec, part))
+    assert vote.granted and vote.fast
+    assert dispatch_count() == 1
+    assert _grouped_records() - before == 3
 
 
 def test_record_keys_rollback_leaves_table_unchanged_on_reject():

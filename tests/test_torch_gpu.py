@@ -235,6 +235,58 @@ def test_cluster_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(cnt_card, cnt_cpu)
 
 
+def test_lone_update_records_its_witnesses_in_one_launch(cuda):
+    """A lone update's f = 3 witness records are ONE K5 launch on the
+    card, and its statuses, every gang table plane and the counter plane
+    equal the CPU plain path's on the same ops: hot keys that conflict,
+    merge-lattice INCRs, multi-key MSETs and RIFL retries."""
+    from repro_torch.core import ShardedCluster, WitnessGeometry
+    from repro_torch.kernels import ops
+
+    def drive(device):
+        c = ShardedCluster(n_shards=4, f=3, witness_backend="device",
+                           geometry=WitnessGeometry(256, 4), seed=7,
+                           sync_batch=1000, device=device)
+        s = c.new_client()
+        group = c.shards[0]
+        keys = [f"k{i}" for i in range(400) if c.shard_of(f"k{i}") == 0]
+        sub = s.session_for(0)
+        statuses, launches, made = [], [], []
+        for i in range(40):
+            if i % 9 == 8:
+                op = made[-1]
+            elif i % 4 == 3:
+                op = sub.op_mset([(keys[i % 5], i), (keys[5 + i % 7], i)])
+            elif i % 4 == 2:
+                op = sub.op_incr(keys[i % 3])
+            else:
+                op = sub.op_set(keys[i % 6], i)
+            made.append(op)
+            before = ops.GANG_GROUPS.launches
+            _v, _r, st = group.attempt_update(op, sub.acks())
+            launches.append(ops.GANG_GROUPS.launches - before)
+            statuses.append([x.value for x in st])
+        planes = [p.cpu() for p in c.gang.table]
+        return statuses, launches, planes, c.gang.drain_counters(), \
+            (group, made[0], sub.acks())
+
+    on_card, launches, planes_card, cnt_card, (group, op, acks) = \
+        drive(cuda)
+    on_cpu, _l, planes_cpu, cnt_cpu, _ = drive("cpu")
+    assert launches == [1] * len(launches)
+    assert on_card == on_cpu
+    assert {tuple(x) for x in on_card} >= {("ACCEPTED",) * 3,
+                                           ("REJECTED",) * 3}
+    for a, b in zip(planes_card, planes_cpu):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(cnt_card, cnt_cpu)
+    per_call = parity.launches_per_call(
+        lambda: group.attempt_update(op, acks))
+    gang = {k: n for k, n in per_call.items() if "gang_" in k}
+    assert gang and all("gang_groups_kernel" in k for k in gang), per_call
+    assert 0 < sum(gang.values()) <= 1, per_call
+
+
 @pytest.fixture(params=[0, 1])
 def txn_case(request):
     """K9's chain over a 64x4 table near full, K10 at 64x4 and 256x1 with

@@ -184,7 +184,7 @@ def test_fused_batch_opens_five_stages_in_order():
 
 @pytest.mark.parametrize("scenario, outer, inner, count", [
     ("update", None, "shard.update", 1),
-    ("update", "shard.update", "witness.record", F),
+    ("update", "shard.update", "witness.record", 1),
     ("update", "shard.update", "shard.master_round", 1),
     ("read", None, "shard.drain", 1),
     ("read", None, "witness.record", 0),
