@@ -1,4 +1,5 @@
-"""The 10 assigned architectures, exactly as specified (source tags inline).
+"""The assigned architectures, exactly as specified (source tags inline):
+the reference's 10 and granite-4.0-h-small, which the port alone runs.
 
 Every config is selectable via --arch <id> in the launchers; reduced smoke
 variants come from repro_torch.models.config.reduced().
@@ -94,11 +95,29 @@ HYMBA_1_5B = ModelConfig(
     ssm=True, ssm_state=16, ssm_expand=2, ssm_head_dim=64, ssm_chunk=64,
 )
 
+GRANITE_4_0_H_SMALL = ModelConfig(
+    # [hf:ibm-granite/granite-4.0-h-small config.json] — one mixer a layer:
+    # Mamba2 except NoPE GQA attention at 5, 15, 25, 35; 72 experts top-10
+    # (width intermediate_size) and a shared expert in every layer
+    name="granite-4.0-h-small", family="hybrid",
+    n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8, d_head=128,
+    d_ff=0, vocab=100_352, act="swiglu", attn="full", pos="none",
+    ssm=True, ssm_state=128, ssm_expand=2, ssm_head_dim=64, ssm_groups=1,
+    ssm_conv=4, ssm_chunk=256,
+    n_experts=72, top_k=10, moe_d_ff=768,
+    n_shared_experts=1, shared_d_ff=1536,
+    layer_types=tuple("attention" if i in (5, 15, 25, 35) else "mamba"
+                      for i in range(40)),
+    tie_embeddings=True, norm_eps=1e-5,
+    embedding_multiplier=12.0, residual_multiplier=0.22,
+    attention_multiplier=0.0078125, logits_scaling=16.0,
+)
+
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in [
         SMOLLM_360M, LLAMA32_1B, DEEPSEEK_CODER_33B, NEMOTRON_4_340B,
         QWEN3_MOE_30B, QWEN2_MOE_A27B, HUBERT_XLARGE, QWEN2_VL_2B,
-        MAMBA2_130M, HYMBA_1_5B,
+        MAMBA2_130M, HYMBA_1_5B, GRANITE_4_0_H_SMALL,
     ]
 }
 

@@ -10,7 +10,10 @@ Three facilities, each cheap enough to stay on by default:
   (witness, master, RIFL, admission control, migration, 2PC, kernels, sim)
   increments instruments obtained from the process-global registry
   (``get_registry()``); ``snapshot()`` turns the whole registry into a
-  JSON-able dict for BENCH merging.
+  JSON-able dict for BENCH merging.  A ``DeviceCounter`` keeps its count
+  in a device tensor that a captured CUDA graph adds to at each replay
+  (the decode step's MoE routing counts); it reaches the host only when
+  read.
 
 * ``span(name)`` — the port's wall-clock spans.  Each layer boundary of the
   store's hot path, recovery and the serving step opens one; while a
@@ -49,8 +52,8 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import torch
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "Span", "Tracer",
-    "get_registry", "registry", "reset_registry", "enable", "disable",
+    "Counter", "DeviceCounter", "Gauge", "Histogram", "MetricsRegistry",
+    "Span", "Tracer", "get_registry", "registry", "reset_registry", "enable", "disable",
     "enabled", "span",
 ]
 
@@ -75,6 +78,37 @@ class Counter:
 
     def to_dict(self) -> Dict[str, Any]:
         return {"type": "counter", "value": self.value}
+
+
+class DeviceCounter:
+    """A count kept on the device it is counted on: ``add`` is one device
+    add into an int64 tensor (graph-safe: the tensor never moves, and
+    ``reset`` zeroes it in place); ``value`` copies it to the host, the
+    only sync, summed over the devices that added to it."""
+
+    __slots__ = ("name", "_by_device")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._by_device: Dict[torch.device, torch.Tensor] = {}
+
+    def add(self, n: torch.Tensor) -> None:
+        t = self._by_device.get(n.device)
+        if t is None:
+            t = self._by_device[n.device] = torch.zeros(
+                (), dtype=torch.int64, device=n.device)
+        t.add_(n)
+
+    @property
+    def value(self) -> int:
+        return sum(int(t.item()) for t in self._by_device.values())
+
+    def reset(self) -> None:
+        for t in self._by_device.values():
+            t.zero_()
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"type": "device_counter", "value": self.value}
 
 
 class Gauge:
@@ -211,6 +245,9 @@ class MetricsRegistry:
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
 
+    def device_counter(self, name: str) -> DeviceCounter:
+        return self._get(name, DeviceCounter)
+
     def gauge(self, name: str) -> Gauge:
         return self._get(name, Gauge)
 
@@ -242,6 +279,7 @@ class _NullInstrument:
     mean = 0.0
 
     def inc(self, n: int = 1) -> None: ...
+    def add(self, n: Any) -> None: ...
     def set(self, v: float) -> None: ...
     def record(self, v: float) -> None: ...
     def reset(self) -> None: ...
@@ -259,6 +297,7 @@ class _NullRegistry:
 
     gauge = counter
     histogram = counter
+    device_counter = counter
 
     def reset(self) -> None: ...
     def snapshot(self, prefix: str = "") -> Dict[str, Any]:

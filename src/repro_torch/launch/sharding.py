@@ -24,7 +24,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping
 
 from ..configs.shapes import ShapeSpec
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, layer_has_attn, layer_has_ssm
 from ..models.convert import unstack_layers
 from ..models.shardctx import to_placements
 from ..models.transformer import segments
@@ -240,12 +240,12 @@ def cache_pspecs(cfg: ModelConfig, shape: ShapeSpec, *, multi_pod: bool):
     dp = dp_axes(multi_pod)
     bshard = dp if shape.global_batch >= 16 else None
     segs = []
-    for _ in segments(cfg):
+    for _kind, s, _e in segments(cfg):
         entry: Dict[str, Any] = {}
-        if cfg.has_attn:
+        if layer_has_attn(cfg, s):
             entry["k"] = P(None, bshard, "model", None, None)
             entry["v"] = P(None, bshard, "model", None, None)
-        if cfg.ssm:
+        if layer_has_ssm(cfg, s):
             entry["ssm"] = {
                 "state": P(None, bshard, None, None, None),
                 "conv": P(None, bshard, None, None),

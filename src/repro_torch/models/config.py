@@ -1,7 +1,9 @@
-"""Unified model configuration covering all 10 assigned architectures.
+"""Unified model configuration covering the assigned architectures.
 
 One dataclass drives dense GQA transformers, MoE, encoder-only audio, VLM
-backbones with M-RoPE, pure SSM (Mamba2/SSD), and hybrid attn+SSM (Hymba).
+backbones with M-RoPE, pure SSM (Mamba2/SSD), hybrid attn+SSM in every
+layer (Hymba) and hybrids whose layers each hold one mixer, attention or
+Mamba2, as ``layer_types`` lists them (Granite 4.0-H).
 """
 from __future__ import annotations
 
@@ -48,15 +50,31 @@ class ModelConfig:
     ssm_groups: int = 1            # G (B/C groups)
     ssm_conv: int = 4
     ssm_chunk: int = 64
+    # --- per-layer mixer ------------------------------------------------------
+    # "attention" or "mamba" for each layer (one mixer a layer); empty: every
+    # layer holds every mixer the config has, as before.
+    layer_types: Tuple[str, ...] = ()
     # --- embedding / frontend ---------------------------------------------------
     frontend: str = "token"        # token | audio | vision
     frontend_dim: int = 0          # stub embedding dim (0 => d_model)
     tie_embeddings: bool = False
     # --- numerics -----------------------------------------------------------------
     norm_eps: float = 1e-5
+    # Granite's scalars; at their defaults nothing is multiplied.
+    embedding_multiplier: float = 1.0   # the embedding's output
+    residual_multiplier: float = 1.0    # each block output before its add
+    attention_multiplier: float = 0.0   # softmax scale; 0 => 1/sqrt(d_head)
+    logits_scaling: float = 1.0         # logits divided by it
     dtype: str = "bfloat16"
     remat: bool = True             # activation checkpointing per layer
     scan_unroll: bool = False      # unroll layer scans (cost-probe lowering)
+
+    def __post_init__(self) -> None:
+        if self.layer_types and (
+                len(self.layer_types) != self.n_layers
+                or not set(self.layer_types) <= {"attention", "mamba"}):
+            raise ValueError(f"layer_types must give 'attention' or 'mamba' "
+                             f"for each of the {self.n_layers} layers")
 
     # ---- derived -------------------------------------------------------------
     @property
@@ -98,16 +116,18 @@ class ModelConfig:
         return self.attn == "full" or i in self.global_attn_layers
 
     def n_params(self) -> int:
-        """Analytic parameter count (for 6·N·D roofline math)."""
+        """Analytic parameter count (for 6·N·D roofline math).  Leaves out
+        the final norm and the SSM's conv bias, as the reference does."""
         d, dh = self.d_model, self.d_head
         n = self.vocab * d                                   # embed
         if not self.tie_embeddings:
             n += d * self.vocab                              # lm head
-        per_layer = 0
+        attn = ssm = 0
         if self.has_attn:
-            per_layer += d * self.n_heads * dh               # wq
-            per_layer += 2 * d * self.n_kv_heads * dh        # wk, wv
-            per_layer += self.n_heads * dh * d               # wo
+            attn += d * self.n_heads * dh                    # wq
+            attn += 2 * d * self.n_kv_heads * dh             # wk, wv
+            attn += self.n_heads * dh * d                    # wo
+        per_layer = 0
         if self.has_dense_mlp:
             mults = 3 if self.act == "swiglu" else 2
             per_layer += mults * d * self.d_ff
@@ -119,12 +139,15 @@ class ModelConfig:
         if self.ssm:
             di, g, N, h = (self.ssm_d_inner, self.ssm_groups,
                            self.ssm_state, self.ssm_heads)
-            per_layer += d * (2 * di + 2 * g * N + h)        # in_proj
-            per_layer += self.ssm_conv_dim * self.ssm_conv   # conv
-            per_layer += 3 * h + di                          # A, D, dt_bias, norm
-            per_layer += di * d                              # out_proj
+            ssm += d * (2 * di + 2 * g * N + h)              # in_proj
+            ssm += self.ssm_conv_dim * self.ssm_conv         # conv
+            ssm += 3 * h + di                                # A, D, dt_bias, norm
+            ssm += di * d                                    # out_proj
         per_layer += 2 * d                                   # norms
-        return n + self.n_layers * per_layer
+        for i in range(self.n_layers):
+            n += per_layer + (attn if layer_has_attn(self, i) else 0) \
+                + (ssm if layer_has_ssm(self, i) else 0)
+        return n
 
     def n_active_params(self) -> int:
         """Active params per token (MoE: top_k + shared experts only)."""
@@ -134,6 +157,19 @@ class ModelConfig:
         full = self.n_params()
         inactive = self.n_layers * (self.n_experts - self.top_k) * 3 * d * self.moe_d_ff
         return full - inactive
+
+
+def layer_has_attn(cfg, i: int) -> bool:
+    """Layer ``i`` holds attention (every layer, unless ``layer_types``
+    gives it another mixer)."""
+    return cfg.has_attn and (not cfg.layer_types
+                             or cfg.layer_types[i] == "attention")
+
+
+def layer_has_ssm(cfg, i: int) -> bool:
+    """Layer ``i`` holds the Mamba2 mixer."""
+    return cfg.ssm and (not cfg.layer_types
+                        or cfg.layer_types[i] == "mamba")
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
@@ -160,6 +196,9 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         base.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
     if cfg.attn == "swa":
         base.update(swa_window=8, global_attn_layers=(0,))
+    if cfg.layer_types:     # one layer of each mixer kind, and two more
+        base.update(n_layers=4,
+                    layer_types=("mamba", "attention", "mamba", "mamba"))
     if cfg.frontend != "token":
         base["frontend_dim"] = 32
     if cfg.pos == "mrope":

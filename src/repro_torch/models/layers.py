@@ -123,6 +123,12 @@ def _position_embed(cfg: ModelConfig, q, k, positions):
 # ----------------------------------------------------------------------------
 # attention
 # ----------------------------------------------------------------------------
+def attn_scale(cfg: ModelConfig, d_head: int) -> float:
+    """The softmax scale: ``attention_multiplier`` where the config gives
+    one (Granite's 1/128), else 1/sqrt(d_head)."""
+    return cfg.attention_multiplier or 1.0 / math.sqrt(d_head)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, init: Init) -> None:
         super().__init__()
@@ -156,7 +162,7 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
     and the PV contraction then become partial reductions."""
     Hq, Hkv = q.shape[2], k.shape[2]
     qg = split_dim(q, 2, (Hkv, Hq // Hkv))
-    scale = 1.0 / math.sqrt(q.shape[3])
+    scale = attn_scale(cfg, q.shape[3])
     logits = torch.einsum("bsgrd,btgd->bgrst", qg, k).float() * scale
     logits = constrain(logits, "scores5")             # [B,G,rep,S,T]
     logits = torch.where(mask[:, :, None], logits, -1e30)
@@ -196,7 +202,7 @@ def _sdpa_blockwise(
         qb = min(block, S)
     kvb = min(block, S)
     nq, nk = S // qb, S // kvb
-    scale = 1.0 / math.sqrt(dh)
+    scale = attn_scale(cfg, dh)
     dev = q.device
     qg = q.reshape(B, nq, qb, Hkv, rep, dh)
     kg = k.reshape(B, nk, kvb, Hkv, dh)
@@ -249,7 +255,7 @@ def _sdpa_blockwise_flat(
     qb = min(block, S)
     kvb = min(block, S)
     nq, nk = S // qb, S // kvb
-    scale = 1.0 / math.sqrt(dh)
+    scale = attn_scale(cfg, dh)
     dev = q.device
     qf = q.reshape(B, nq, qb, Hq, dh)
     kg = k.reshape(B, nk, kvb, Hq, dh)

@@ -6,7 +6,9 @@ Switch Transformer (fraction-of-tokens x mean-router-prob per expert).
 ``moe_forward`` dispatches as the reference does: the expert-parallel
 ``moe_mlp_shardmap`` (explicit all-to-all over the "model" mesh axis) when
 the ``moe_ep`` marker rule is installed, else the capacity or the dense
-dispatch.
+dispatch.  At decode a :class:`RoutingTally` counts the rows each
+dispatch multiplies and, on the device, the experts the live rows pick
+(the registry's ``moe.experts_touched``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.telemetry import get_registry
 from .config import ModelConfig
 from .layers import MLP, Init
 from .shardctx import constrain, get_rule, to_placements
@@ -31,6 +34,46 @@ class MoE(nn.Module):
         self.w_down = init.normal((e, ff, d), ff ** -0.5)
         if cfg.n_shared_experts:
             self.shared = MLP(cfg, init, d_ff=cfg.shared_d_ff)
+
+
+class RoutingTally:
+    """One decode step's routing, counted as the step is built.
+
+    Each MoE layer's dispatch calls ``add`` with its rows' picks and the
+    rows its buffers hold.  The host keeps what the shapes fix: ``rows``,
+    the rows the step's dispatch multiplies, and ``picks_a_row``, the
+    expert picks of one live row over the step's layers.  The device keeps
+    what the routing decides: the experts with a live pick in each layer,
+    which ``record``, at the step's end, adds to the registry's device
+    counter ``moe.experts_touched``.  No host sync: a captured step adds
+    to it at each replay, and it is copied to the host only when read."""
+
+    def __init__(self, active: torch.Tensor) -> None:
+        self.live = (active > 0).reshape(-1, 1)
+        self.rows = 0
+        self.picks_a_row = 0
+        self.touched = []
+
+    def add(self, tok_onehot: torch.Tensor, rows: int, top_k: int) -> None:
+        """``tok_onehot`` [N, E]: each row's picks (N = the step's rows);
+        ``rows``: the rows the layer's dispatch multiplies."""
+        self.rows += rows
+        self.picks_a_row += top_k
+        self.touched.append(((tok_onehot * self.live).sum(dim=0) > 0).sum())
+
+    def record(self) -> None:
+        if self.touched:
+            get_registry().device_counter("moe.experts_touched").add(
+                torch.stack(self.touched).sum())
+
+
+def _capacity(cfg: ModelConfig, n: int) -> int:
+    """The capacity dispatch's rows an expert for ``n`` tokens: K * n * cf
+    / E rounded, at least 1, then up to a multiple of 64, as the reference
+    keeps it."""
+    C = int(max(1, round(cfg.top_k * n * cfg.moe_capacity_factor
+                         / cfg.n_experts)))
+    return -(-C // 64) * 64
 
 
 def _route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
@@ -50,11 +93,14 @@ def _shared(cfg: ModelConfig, p: MoE, x: torch.Tensor, out: torch.Tensor):
 
 
 def moe_mlp(
-    cfg: ModelConfig, p: MoE, x: torch.Tensor,
+    cfg: ModelConfig, p: MoE, x: torch.Tensor, tally=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense dispatch.  x: [B, S, D] -> (out [B, S, D], aux_loss scalar)."""
     E = cfg.n_experts
     probs, top_p, top_i = _route(cfg, p.router, x)            # [B,S,K]
+    if tally is not None:                 # every expert over every row
+        picks = F.one_hot(top_i, E).sum(dim=2).reshape(-1, E)
+        tally.add(picks, E * picks.shape[0], cfg.top_k)
 
     # combine [B,S,E] = sum_k onehot(top_i_k) * top_p_k
     onehot = F.one_hot(top_i, E).to(x.dtype)                  # [B,S,K,E]
@@ -76,7 +122,7 @@ def moe_mlp(
 
 
 def moe_mlp_capacity(
-    cfg: ModelConfig, p: MoE, x: torch.Tensor,
+    cfg: ModelConfig, p: MoE, x: torch.Tensor, tally=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-bounded gather/scatter dispatch (GShard-style).
 
@@ -91,9 +137,10 @@ def moe_mlp_capacity(
     xf = x.reshape(N, D)
     probs, top_p, top_i = _route(cfg, p.router, xf)           # [N, K]
 
-    C = int(max(1, round(K * N * cfg.moe_capacity_factor / E)))
-    C = -(-C // 64) * 64   # round up, as the reference keeps it
+    C = _capacity(cfg, N)
     tok_onehot = F.one_hot(top_i, E).sum(dim=1)               # [N,E]
+    if tally is not None:
+        tally.add(tok_onehot, E * C, K)
     base = torch.cumsum(tok_onehot, dim=0) - tok_onehot       # exclusive
     slot = torch.gather(base, 1, top_i)                       # [N, K]
     keep = slot < C
@@ -341,7 +388,9 @@ def moe_mlp_shardmap(cfg: ModelConfig, p: MoE, x: torch.Tensor
     return _shared(cfg, p, x, out), aux
 
 
-def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor):
+def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor, tally=None):
+    """The layer's output and aux loss; ``tally`` (a decode step's
+    :class:`RoutingTally`) takes the live rows' picks."""
     if (cfg.moe_dispatch == "capacity" and get_rule("moe_ep") is not None
             and cfg.n_experts and get_rule("residual") is not None):
         mesh = get_rule("moe_ep").mesh
@@ -349,5 +398,5 @@ def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor):
         if tp and cfg.n_experts % tp == 0:
             return moe_mlp_shardmap(cfg, p, x)
     if cfg.moe_dispatch == "capacity":
-        return moe_mlp_capacity(cfg, p, x)
-    return moe_mlp(cfg, p, x)
+        return moe_mlp_capacity(cfg, p, x, tally)
+    return moe_mlp(cfg, p, x, tally)

@@ -10,7 +10,10 @@ keeps the reference's layout, per segment of ``segments(cfg)``:
     [single 0] [scan 1..14] [single 15] [scan 16..30] [single 31]
 
 (Hymba), each segment's tensors stacked over its layers, with window-sized
-KV for SWA layers and ``max_seq`` KV for global ones.  ``decode_step``
+KV for SWA layers and ``max_seq`` KV for global ones.  Where
+``cfg.layer_types`` gives each layer one mixer (Granite 4.0-H), each
+attention layer is a "single" segment holding only its K/V and each run of
+Mamba2 layers a "scan" segment holding only SSM state.  ``decode_step``
 writes the cache in place, its positions too.  Every entry point places
 its tensors on ``device`` ("cuda" unless the caller asks for another) and
 raises when it names a CUDA device and none is present: nothing falls back
@@ -18,13 +21,13 @@ to the CPU.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .config import ModelConfig
+from .config import ModelConfig, layer_has_attn, layer_has_ssm
 from .layers import (
     MLP,
     Attention,
@@ -34,7 +37,7 @@ from .layers import (
     mlp,
     rmsnorm,
 )
-from .moe import MoE, moe_forward
+from .moe import MoE, RoutingTally, moe_forward
 from .shardctx import constrain, follow, take_last
 from .ssm import SSM, init_ssm_cache, ssm_decode, ssm_train
 
@@ -64,6 +67,16 @@ def torch_dtype(name: str) -> torch.dtype:
 # ----------------------------------------------------------------------------
 def segments(cfg: ModelConfig) -> List[Tuple[str, int, int]]:
     """[("scan"|"single", start, end)] covering 0..n_layers in order."""
+    if cfg.layer_types:
+        segs: List[Tuple[str, int, int]] = []
+        for i, kind in enumerate(cfg.layer_types):
+            if kind == "attention":
+                segs.append(("single", i, i + 1))
+            elif segs and segs[-1][0] == "scan":
+                segs[-1] = ("scan", segs[-1][1], i + 1)
+            else:
+                segs.append(("scan", i, i + 1))
+        return segs
     if cfg.attn != "swa" or not cfg.global_attn_layers:
         return [("scan", 0, cfg.n_layers)]
     segs: List[Tuple[str, int, int]] = []
@@ -82,12 +95,12 @@ def segments(cfg: ModelConfig) -> List[Tuple[str, int, int]]:
 # the module
 # ----------------------------------------------------------------------------
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, init: Init) -> None:
+    def __init__(self, cfg: ModelConfig, init: Init, i: int) -> None:
         super().__init__()
         self.norm1 = init.full((cfg.d_model,), 1.0)
-        if cfg.has_attn:
+        if layer_has_attn(cfg, i):
             self.attn = Attention(cfg, init)
-        if cfg.ssm:
+        if layer_has_ssm(cfg, i):
             self.ssm = SSM(cfg, init)
         if cfg.has_moe:
             self.norm2 = init.full((cfg.d_model,), 1.0)
@@ -113,8 +126,8 @@ class Transformer(nn.Module):
         if cfg.frontend != "token":
             fd = cfg.frontend_dim or d
             self.frontend_proj = init.normal((fd, d), fd ** -0.5)
-        self.blocks = nn.ModuleList(Block(cfg, init)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, init, i)
+                                    for i in range(cfg.n_layers))
         self.final_norm = init.full((d,), 1.0)
         if not cfg.tie_embeddings:
             self.lm_head = init.normal((d, cfg.vocab), d ** -0.5)
@@ -123,11 +136,31 @@ class Transformer(nn.Module):
     def from_state_dict(cls, cfg: ModelConfig,
                         state: Mapping[str, torch.Tensor],
                         device="cuda") -> "Transformer":
-        """The module on ``device`` holding exactly ``state`` (every key,
-        cast to the config's dtype), with no random draw."""
+        """The module on ``device`` holding exactly ``state`` (every key),
+        with no random draw.  A tensor already of the parameter's shape,
+        the config's dtype and ``device`` becomes the parameter itself (no
+        copy: a state as large as the card's free memory still loads);
+        any other is copied, cast to the config's dtype."""
         device = resolve_device(device)
-        model = cls(cfg, device="meta").to_empty(device=device)
-        model.load_state_dict(state, strict=True)
+        model = cls(cfg, device="meta")
+        names = dict(model.named_parameters())
+        here = torch.empty(0, device=device).device     # "cuda" -> "cuda:0"
+        if set(state) != set(names):
+            raise KeyError(
+                f"state does not match the parameters: missing "
+                f"{sorted(set(names) - set(state))}, unexpected "
+                f"{sorted(set(state) - set(names))}")
+        for name, meta in names.items():
+            t = state[name]
+            if tuple(t.shape) != tuple(meta.shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, the "
+                                 f"parameter is {tuple(meta.shape)}")
+            if t.dtype != meta.dtype or t.device != here:
+                t = t.to(device=device, dtype=meta.dtype, copy=True)
+            owner, _, attr = name.rpartition(".")
+            setattr(model.get_submodule(owner), attr,
+                    nn.Parameter(t.detach(), requires_grad=meta.requires_grad))
+        model.device = device
         return model
 
     def to_empty(self, *, device, recurse: bool = True) -> "Transformer":
@@ -152,23 +185,31 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 # ----------------------------------------------------------------------------
 # forward (train / encode / prefill-logits)
 # ----------------------------------------------------------------------------
+def _residual(cfg: ModelConfig, x, out):
+    """``x + out``, the block's output scaled by ``residual_multiplier``
+    (multiplied only where it is not 1)."""
+    if cfg.residual_multiplier != 1.0:
+        out = out * cfg.residual_multiplier
+    return x + out
+
+
 def _block_train(cfg: ModelConfig, p: Block, x, positions, is_global: bool):
     h = rmsnorm(x, p.norm1, cfg.norm_eps)
     parts = []
-    if cfg.has_attn:
+    if hasattr(p, "attn"):
         parts.append(attention_train(cfg, p.attn, h, positions, is_global))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.ssm:
+    if hasattr(p, "ssm"):
         parts.append(ssm_train(cfg, p.ssm, h))
     mix = parts[0] if len(parts) == 1 else (parts[0] + parts[1]) * 0.5
-    x = x + mix
+    x = _residual(cfg, x, mix)
     if cfg.has_moe:
         h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
         out, aux = moe_forward(cfg, p.moe, h2)
-        x = x + out
+        x = _residual(cfg, x, out)
     elif cfg.has_dense_mlp:
         h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
-        x = x + mlp(cfg, p.mlp, h2)
+        x = _residual(cfg, x, mlp(cfg, p.mlp, h2))
     return constrain(x, "residual"), aux
 
 
@@ -179,6 +220,8 @@ def embed_inputs(cfg: ModelConfig, params: Transformer,
     else:
         # audio / vision stubs: precomputed frame/patch embeddings (spec).
         x = batch["embeds"] @ params.frontend_proj
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     return constrain(x, "residual")
 
 
@@ -211,8 +254,16 @@ def forward(
                 x, a = _block_train(*args)
             aux_total = aux_total + a
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    logits = constrain(x @ params.head(), "logits")
+    logits = constrain(_scaled(cfg, x @ params.head()), "logits")
     return logits, aux_total
+
+
+def _scaled(cfg: ModelConfig, logits):
+    """The head's output divided by ``logits_scaling`` (only where it is
+    not 1)."""
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
 
 
 def loss_fn(
@@ -248,7 +299,7 @@ def init_decode_cache(
     for kind, s, e in segments(cfg):
         n = e - s
         entry: Dict[str, Any] = {}
-        if cfg.has_attn:
+        if layer_has_attn(cfg, s):
             is_global = cfg.layer_is_global(s) if kind == "single" else (
                 cfg.attn == "full"
             )
@@ -256,7 +307,7 @@ def init_decode_cache(
             shape = (n, batch, C, cfg.n_kv_heads, cfg.d_head)
             entry["k"] = torch.zeros(shape, dtype=dtype, device=device)
             entry["v"] = torch.zeros(shape, dtype=dtype, device=device)
-        if cfg.ssm:
+        if layer_has_ssm(cfg, s):
             one = init_ssm_cache(cfg, batch, dtype, device)
             entry["ssm"] = {name: torch.zeros((n,) + a.shape, dtype=a.dtype,
                                               device=device)
@@ -276,44 +327,48 @@ def cache_tensors(cache: Dict) -> List[torch.Tensor]:
 
 
 def _block_decode(cfg: ModelConfig, p: Block, x, entry, j: int, cur_pos,
-                  positions, is_global: bool, active):
+                  positions, is_global: bool, active, tally=None):
     """Layer ``j`` of a segment's cache ``entry``, written in place."""
     h = rmsnorm(x, p.norm1, cfg.norm_eps)
     parts = []
-    if cfg.has_attn:
+    if "k" in entry:
         o, _ = attention_decode(
             cfg, p.attn, h, (entry["k"][j], entry["v"][j]), cur_pos,
             positions, is_global, active,
         )
         parts.append(o)
-    if cfg.ssm:
+    if "ssm" in entry:
         cache = {name: t[j] for name, t in entry["ssm"].items()}
         o, new = ssm_decode(cfg, p.ssm, h, cache, active)
         for name, t in new.items():
             cache[name].copy_(t)
         parts.append(o)
     mix = parts[0] if len(parts) == 1 else (parts[0] + parts[1]) * 0.5
-    x = x + mix
+    x = _residual(cfg, x, mix)
     if cfg.has_moe:
         h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
-        out, _ = moe_forward(cfg, p.moe, h2)
-        x = x + out
+        out, _ = moe_forward(cfg, p.moe, h2, tally)
+        x = _residual(cfg, x, out)
     elif cfg.has_dense_mlp:
         h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
-        x = x + mlp(cfg, p.mlp, h2)
+        x = _residual(cfg, x, mlp(cfg, p.mlp, h2))
     return x
 
 
 @torch.no_grad()
 def decode_step(
     cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dict,
+    tally: Optional[RoutingTally] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode.  batch: {"tokens": [B,1]} (or {"embeds": [B,1,fd]});
     optional "positions" ([B,1] or [3,B,1]) and "active" ([B] int32: rows
     with 0 neither write caches nor advance).  Returns (logits [B,V] f32,
     cache): every tensor of the cache is written in place, "pos" too
     (``pos += active``, after every layer has read it), so a step captured
-    as a CUDA graph reads and writes the same tensors at each replay."""
+    as a CUDA graph reads and writes the same tensors at each replay.
+    ``tally`` (an MoE config; ``moe.RoutingTally`` over the step's active
+    mask) takes each MoE layer's dispatch rows and, on the device with no
+    host sync, the experts its live rows pick."""
     x = embed_inputs(cfg, params, batch)
     B = x.shape[0]
     cur_pos = cache["pos"]                       # [B]
@@ -328,9 +383,11 @@ def decode_step(
         for i in range(s, e):
             x = _block_decode(cfg, params.blocks[i], x, entry, i - s,
                               cur_pos, positions, cfg.layer_is_global(i),
-                              active)
+                              active, tally)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    logits = (x[:, 0, :] @ params.head()).float()
+    logits = _scaled(cfg, (x[:, 0, :] @ params.head()).float())
+    if tally is not None:
+        tally.record()
     cur_pos.add_(active)
     return logits, cache
 

@@ -32,8 +32,9 @@ import numpy as np
 import torch
 
 from ..core import WitnessGeometry
-from ..core.telemetry import get_registry, span
+from ..core.telemetry import enabled, get_registry, span
 from ..models.config import ModelConfig
+from ..models.moe import RoutingTally
 from ..models.transformer import (
     Transformer,
     cache_tensors,
@@ -99,6 +100,14 @@ class CurpServeDriver:
         self._m_tokens = reg.counter("serve.tokens")
         self._m_recoveries = reg.counter("serve.recoveries")
         self._m_replayed = reg.counter("serve.replayed_ops")
+        # An MoE step's routing: the rows its dispatch multiplies and the
+        # picks a live row makes, as the step was built (``RoutingTally``),
+        # counted here at each step; the experts the live rows touched are
+        # added on the device inside the step.
+        self._count_routing = cfg.has_moe and enabled()
+        self._m_rows = reg.counter("moe.rows_computed")
+        self._m_routed = reg.counter("moe.routed")
+        self._rows_a_step = self._picks_a_row = 0
 
     @torch.no_grad()
     def _step_body(self, inputs: torch.Tensor):
@@ -106,7 +115,12 @@ class CurpServeDriver:
         the active mask) through ``decode_step`` on the driver's cache.
         Returns (f32 logits [B, V], greedy tokens [B])."""
         batch = {"tokens": inputs[0][:, None], "active": inputs[1]}
-        logits, _ = decode_step(self.cfg, self.params, batch, self.cache)
+        tally = RoutingTally(inputs[1]) if self._count_routing else None
+        logits, _ = decode_step(self.cfg, self.params, batch, self.cache,
+                                tally)
+        if tally is not None:
+            self._rows_a_step = tally.rows
+            self._picks_a_row = tally.picks_a_row
         return logits, torch.argmax(logits, dim=-1)
 
     def _decode(self, host: np.ndarray) -> torch.Tensor:
@@ -116,6 +130,7 @@ class CurpServeDriver:
         ``self._next`` until the next step."""
         if self.device.type != "cuda":
             logits, self._next = self._step_body(torch.from_numpy(host))
+            self._count(host)
             return logits
         if self._graph is None:
             self._capture()
@@ -126,7 +141,16 @@ class CurpServeDriver:
         self._staged.record()
         self._graph.replay()
         self.graph_replays += 1
+        self._count(host)
         return self._logits.clone()    # the next replay overwrites _logits
+
+    def _count(self, host: np.ndarray) -> None:
+        """An MoE step's routing counts, on the host: ``host[1]`` is the
+        step's active mask."""
+        if self._count_routing:
+            self._m_rows.inc(self._rows_a_step)
+            self._m_routed.inc(self._picks_a_row
+                               * int(np.count_nonzero(host[1])))
 
     def _capture(self) -> None:
         """Capture the decode step as a CUDA graph, once.  The warm-up and

@@ -42,7 +42,7 @@ import pytest
 import torch
 
 from repro.configs import ARCHS
-from repro.models.config import reduced
+from _port_cfg import reduced
 from repro.models.layers import _sdpa_blockwise_flat as ref_flat
 from repro_torch.models.layers import _sdpa_blockwise, _sdpa_blockwise_flat
 

@@ -21,7 +21,7 @@ from repro.configs import ARCHS
 from repro.data.pipeline import DataConfig as RefDataConfig
 from repro.ft import FTConfig as RefFTConfig
 from repro.ft import FaultTolerantTrainer as RefTrainer
-from repro.models.config import reduced
+from _port_cfg import reduced
 from repro.models.transformer import init_params
 from repro_torch.data import DataConfig
 from repro_torch.ft import (

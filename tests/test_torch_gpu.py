@@ -529,6 +529,60 @@ def test_serving_graph_matches_eager_decode_on_the_card(cuda, arch):
     assert all(len(s.tokens) > 24 for s in d.sessions.values())
 
 
+def test_granite_serving_graph_matches_eager_decode_on_the_card(cuda):
+    """Reduced granite-4.0-h-small in bf16 (Mamba2 and NoPE attention, one
+    a layer; 8 experts top-2 by the capacity dispatch and a shared expert;
+    the published multipliers), served through the driver: every decode
+    is one replay of the captured graph, held against eager
+    ``decode_step`` on a clone of the cache.  Greedy tokens equal where the
+    eager top-2 margin exceeds 0.25, logits and caches within 0.25: the
+    bound ``chip_smoke.py`` phase 7 holds a bf16 decode graph to
+    (``BF16_LOGIT_TOL``; the graph runs the eager step's kernels, and only
+    the dispatch's float atomic adds may sum in another order).  The
+    driver counts every live pick, and the step's device counter at least
+    one expert a layer in each step with a live row."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.telemetry import registry
+    from repro_torch.models import Transformer, reduced
+    from repro_torch.serving import CurpServeDriver, ServeConfig
+
+    cfg = reduced(ARCHS["granite-4.0-h-small"], dtype="bfloat16",
+                  moe_dispatch="capacity")
+    state = Transformer(cfg, device=cuda, seed=4).state_dict()
+    model = Transformer.from_state_dict(cfg, state, device="cuda")
+    assert all(p.data_ptr() == state[n].data_ptr()      # adopted, no copy
+               for n, p in model.named_parameters())
+    d = CurpServeDriver(cfg, ServeConfig(
+        max_batch=4, max_seq=32, n_shards=2, witness_backend="device",
+        device=cuda), params=model)
+    routed0 = registry().counter("moe.routed").value
+    touched0 = registry().device_counter("moe.experts_touched").value
+    log = []
+    _against_eager(d, log)
+    d.submit("a", [5, 17, 99])
+    d.submit("b", [1, 2])
+    d.submit("c", [7, 7, 3, 12, 40])
+    d.generate(12)
+    assert d.crash_and_recover()["recovered_sessions"] == 3
+    d.generate(12)
+    assert d._graph is not None and d.graph_replays == len(log) > 24
+    tol = 0.25
+    for got, want, active, apart in log:
+        top2 = torch.topk(want[active], 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > tol
+        assert torch.equal(got.argmax(-1)[active][sure],
+                           want.argmax(-1)[active][sure])
+        assert float((got - want)[active].abs().max()) <= tol
+        assert apart <= tol
+    live = sum(int(a.sum()) for _g, _w, a, _d in log)
+    routed = registry().counter("moe.routed").value - routed0
+    assert routed == live * cfg.top_k * cfg.n_layers
+    touched = (registry().device_counter("moe.experts_touched").value
+               - touched0)
+    assert cfg.n_layers * sum(1 for _g, _w, a, _d in log if a.any()) \
+        <= touched <= routed
+
+
 def test_serving_graph_capture_refusal_raises(cuda, monkeypatch):
     """A decode step that cannot be captured (here one that reads a value
     back to the host mid-step) raises, naming the line that refused, at

@@ -46,6 +46,23 @@ def test_source_has_no_jax_or_repro_import(path):
     assert not hits, f"{path} imports {hits}"
 
 
+BENCH_CODE = sorted(p.relative_to(ROOT) for d in ("entries", "reference")
+                    for p in (ROOT / "perfbench" / d).glob("*.py"))
+
+
+@pytest.mark.parametrize("path", BENCH_CODE, ids=str)
+def test_benchmark_entries_and_references_import_no_jax(path):
+    """The benchmark's entries and plain references run beside the port
+    on the card: neither imports JAX or the JAX package, and a reference
+    imports nothing of the port either."""
+    text = (ROOT / path).read_text()
+    hits = _FORBIDDEN.findall(text)
+    assert not hits, f"{path} imports {hits}"
+    if path.parent.name == "reference":
+        assert not re.search(r"^\s*(import|from)\s+repro_torch", text,
+                             re.M), path
+
+
 def _device_backends():
     from repro_torch.core import LocalCluster, ShardedCluster, ShardGroup
     from repro_torch.core.config import ConfigManager

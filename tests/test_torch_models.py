@@ -21,7 +21,7 @@ from repro.configs import ARCHS, concrete_batch
 from repro.configs import cache_specs as ref_cache_specs
 from repro.models import decode_step, forward, init_decode_cache, init_params
 from repro.models import loss_fn
-from repro.models.config import reduced
+from _port_cfg import port_cfg, reduced
 from repro.models.moe import init_moe_params
 from repro.models.moe import moe_mlp_capacity as ref_moe_capacity
 from repro.models.ssm import ssd_chunked as ref_ssd_chunked
@@ -72,9 +72,20 @@ def test_port_exports_the_reference_names():
 
 
 def test_port_configs_are_the_reference_configs():
-    assert PORT_ARCHS.keys() == ARCHS.keys()
+    """Every reference config is in the port, field for field, and the
+    port's own fields (Granite's mixer list and scalars) sit at their
+    defaults there; the port's one extra arch is granite-4.0-h-small."""
+    assert PORT_ARCHS.keys() - ARCHS.keys() == {"granite-4.0-h-small"}
+    ref_fields = {f.name for f in dataclasses.fields(type(ARCHS["smollm-360m"]))}
+    defaults = {f.name: f.default for f in dataclasses.fields(tm.ModelConfig)
+                if f.name not in ref_fields}
+    assert set(defaults) == {"layer_types", "embedding_multiplier",
+                             "residual_multiplier", "attention_multiplier",
+                             "logits_scaling"}
     for name, cfg in ARCHS.items():
-        assert dataclasses.asdict(PORT_ARCHS[name]) == dataclasses.asdict(cfg)
+        port = dataclasses.asdict(PORT_ARCHS[name])
+        assert {k: port.pop(k) for k in defaults} == defaults
+        assert port == dataclasses.asdict(cfg)
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
@@ -307,7 +318,7 @@ def test_full_width_module_on_meta(arch):
     count equals the reference's abstract init, leaf for leaf in total, and
     the decode_32k cell's cache and batch specs have the reference's
     shapes."""
-    cfg = ARCHS[arch]
+    cfg = port_cfg(ARCHS[arch])
     model = tm.Transformer(cfg, device="meta")
     assert all(p.device.type == "meta" for p in model.parameters())
     abstract = jax.eval_shape(lambda: init_params(cfg, KEY))

@@ -30,7 +30,7 @@ import repro_torch.core as tcore
 import repro_torch.serving.kvstore as port_kv
 from repro.configs import ARCHS
 from repro.models import init_params
-from repro.models.config import reduced
+from _port_cfg import reduced
 from repro.serving.server import CurpServeDriver as RefDriver
 from repro.serving.server import ServeConfig as RefServeConfig
 from repro_torch.kernels import dispatch_count, reset_dispatch_count

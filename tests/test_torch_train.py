@@ -19,7 +19,7 @@ from repro.data.pipeline import DataConfig as RefDataConfig
 from repro.data.pipeline import SyntheticPipeline as RefPipeline
 from repro.launch.steps import make_train_step as ref_make_train_step
 from repro.models import init_params, loss_fn
-from repro.models.config import reduced
+from _port_cfg import reduced
 from repro.optim.compression import _quantize_leaf as ref_quantize
 import repro_torch.models as tm
 import repro_torch.optim as topt
