@@ -194,7 +194,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    the gang kernels' launches per step, the device's idle share over one
    profiled step (and by CUDA events, where the profiler's busy time for
    a replay is not about the eager step's), the host's self time by
-   operator over another, and the phase's wall seconds.
+   operator over another, and the phase's wall seconds.  The Mamba2 state
+   update (``csrc/ssm_update.cu``) runs inside hymba-1.5b's replays, where
+   the host counts no launch: its launches in the kernels' line are the
+   drivers' ``ssm.fused_updates`` over this phase, the Mamba2 layers each
+   replay updated.
+
+7b. The Mamba2 state update (after phase 7): ``ssm_state_update_cuda``
+   and ``ssm_state_update_plain`` on the same card tensors at hymba-1.5b's
+   layer as phase 7 serves it (8 x 50 x 64 x 16) and granite-4.0-h-small's
+   as its cell serves it (16 x 128 x 64 x 128), in bf16, every third row
+   inactive: the state bit for bit, y within its summation order (|y -
+   y_plain| <= 2^-7 |y_plain| + 2^-14 sum_n |new C|, as the gpu test
+   states it); both timed (CUDA events, state restored between calls), the
+   kernel's device time, and its bound: one read and one write of the
+   state at HBM_BYTES_PER_S.  Its kernels' row is hymba's layer.
 
 8. Training (run last; launches counted from 0 over this phase alone,
    and it must launch none of the port's kernels: the model is plain
@@ -307,6 +321,10 @@ SERVE_NUMERIC_STEPS = 8
 # after its run: steps of every live row, no commit.
 SERVE_GRAPH_STEPS = 8
 BF16_LOGIT_TOL, F32_LOGIT_TOL = 0.25, 1e-3
+# The Mamba2 state update (phase 7b): each arch's layer at the rows it is
+# served with, phase 7's hymba-1.5b first (its kernels' row), then
+# granite-4.0-h-small at its cell's 16.
+SSM_SHAPES = (("hymba-1.5b", SERVE_BATCH), ("granite-4.0-h-small", 16))
 # Training (phase 8): CURP-FT at smollm-360m's published width and depth
 # (bf16 weights, remat, f32 moments), train_4k's sequence of 4096 in a
 # micro-batch of 2, f = 3 witnesses and backups, a sync every 5 steps; the
@@ -2495,14 +2513,18 @@ def _serve_numerics(np, torch, card, cfg, model):
 def phase_serving(np, torch, card, device):
     """CurpServeDriver on the card at full width (launches counted from 0
     over this phase alone); returns the phase's launches and numbers."""
+    from repro_torch.core.telemetry import get_registry
     from repro_torch.kernels import ops as kops
     from repro_torch.models import Transformer
 
     kops.reset_launch_counts()
+    fused = get_registry().counter("ssm.fused_updates")
+    fused.reset()
     info = {}
     t_phase = time.perf_counter()
     for name in SERVE_ARCHS:
         cfg = serve_arch(name)
+        fused_before = fused.value
         t0 = time.perf_counter()
         model = Transformer(cfg, device=device, seed=SEED)
         torch.cuda.synchronize()
@@ -2602,6 +2624,10 @@ def phase_serving(np, torch, card, device):
                   f"profiler {row['host_ops']['total_ms']:.1f} ms, by op: "
                   + ", ".join(f"{k} x{n} {sh:.3f}"
                               for k, n, sh in row["host_ops"]["top"]))
+        row["ssm_fused_updates"] = fused.value - fused_before
+        check((row["ssm_fused_updates"] > 0) == bool(cfg.ssm),
+              f"{name}: {row['ssm_fused_updates']} Mamba2 state updates "
+              f"in its replays")
         info[name] = row
         del a, model
         torch.cuda.empty_cache()
@@ -2609,8 +2635,12 @@ def phase_serving(np, torch, card, device):
     path = ("gang_record", "gang_fastpath", "gang_gc", "gang_record_groups")
     check(all(launched[k] > 0 for k in path),
           f"serving did not launch every gang kernel: {launched}")
+    # The host counts ssm_update.cu once a capture; its launches are the
+    # replays' state updates.
+    launched[kops.SSM_UPDATE.name] = fused.value
     say(card, "serving launches (phase 7 alone): "
-              + ", ".join(f"{k} {launched[k]}" for k in path)
+              + ", ".join(f"{k} {launched[k]}"
+                          for k in path + (kops.SSM_UPDATE.name,))
               + f"; phase 7 took {time.perf_counter() - t_phase:.1f} s")
     return launched, info
 
@@ -2658,6 +2688,100 @@ def _serve_other_paths(np, torch, card, cfg, model, prompts, a, want):
     return dict(python_fast_slow=counts[1], full_by_shard=full,
                 atomic=dict(single=len(single), cross=len(cross),
                             launches=launched))
+
+
+# ---------------------------------------------------------------------------
+# Phase 7b: the Mamba2 state update against its plain version
+# ---------------------------------------------------------------------------
+def _ssm_operands(torch, cfg, B, device):
+    """A bf16 state and one step's operands at ``cfg``'s Mamba2 layer for B
+    rows, every third row inactive.  B and C are views of one wider row
+    laid out batch-fastest and xdt is permuted, as ``ssm_decode`` finds
+    them after its conv's einsum."""
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16)
+
+    row = draw(2 * G * N + 8, B).t()
+    Bm = row[:, 8:8 + G * N].reshape(B, G, N)
+    Cm = row[:, 8 + G * N:].reshape(B, G, N)
+    xdt = (draw(P, H, B) * 0.5).permute(2, 1, 0)
+    dA = (0.5 + 0.5 * torch.rand((B, H), generator=gen, device=device)).to(
+        torch.bfloat16)
+    active = torch.ones(B, dtype=torch.int32, device=device)
+    active[1::3] = 0
+    return draw(B, H, P, N), dA, xdt, Bm, Cm, active
+
+
+def phase_ssm_update(np, torch, card, device):
+    """``ssm_update.cu`` against ``ssm_state_update_plain`` on the same
+    card tensors at each of SSM_SHAPES: the state bit for bit, y within its
+    summation order; both timed, the kernel's device time and its bound.
+    Returns its numbers by arch."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.ssm import ssm_state_update_plain
+
+    out = {}
+    for arch, B in SSM_SHAPES:
+        cfg = ARCHS[arch]
+        state0, dA, xdt, Bm, Cm, active = _ssm_operands(torch, cfg, B,
+                                                        device)
+        shape = tuple(state0.shape)
+        want, y_want = ssm_state_update_plain(state0, dA, xdt, Bm, Cm,
+                                              active)
+        new_all, _ = ssm_state_update_plain(state0, dA, xdt, Bm, Cm, None)
+        state = state0.clone()
+        y = kops.ssm_state_update_cuda(state, dA, xdt, Bm, Cm, active)
+        torch.cuda.synchronize()
+        check(torch.equal(state.view(torch.int16), want.view(torch.int16)),
+              f"ssm_state_update at {shape}: the state differs from the "
+              f"plain version's")
+        # Each side rounds its f32 sum of N terms once to bf16 (2^-8 of |y|
+        # each); two f32 sums in other orders part by at most 2 N 2^-24 of
+        # the terms' absolute sum, N <= 128.
+        rep = cfg.ssm_heads // cfg.ssm_groups
+        terms = (new_all.float() * Cm.repeat_interleave(rep, dim=1).float()
+                 [:, :, None, :]).abs().sum(-1)
+        tol = 2**-7 * y_want.float().abs() + 2**-14 * terms
+        gap = (y.float() - y_want.float()).abs()
+        check(bool((gap <= tol).all()),
+              f"ssm_state_update at {shape}: y differs from the plain "
+              f"version's by {float(gap.max()):.6g}, past its summation "
+              f"order")
+
+        def restore():
+            state.copy_(state0)
+
+        def kernel():
+            kops.ssm_state_update_cuda(state, dA, xdt, Bm, Cm, active)
+
+        def plain():
+            ssm_state_update_plain(state, dA, xdt, Bm, Cm, active)
+
+        nbytes = 2 * state.numel() * state.element_size()
+        t = dict(shape=shape, max_abs_err=float(gap.max()),
+                 tol_share=float((gap / tol.clamp_min(1e-30)).max()),
+                 ms=_event_ms(torch, kernel, restore, 50),
+                 plain_ms=_event_ms(torch, plain, restore, 5),
+                 bytes=nbytes, bound=_bound_ms(nbytes, 0))
+        restore()
+        t["device_ms"] = _device_ms(torch, kernel, only="ssm_update")
+        out[arch] = t
+        say(card, f"ssm_state_update at {arch}'s layer {shape} bf16, rows "
+                  f"{int((active == 0).sum())} of {B} inactive: state bit "
+                  f"for bit with the plain version, y max abs diff "
+                  f"{t['max_abs_err']:.6g} ({t['tol_share']:.3f} of its "
+                  f"bound); {t['ms']:.4f} ms (CUDA events; plain "
+                  f"{t['plain_ms']:.4f}), device "
+                  + ("not measured" if t["device_ms"] is None else
+                     f"{t['device_ms']:.4f} ms")
+                  + f", bound {t['bound'][0]:.6f} ms ({nbytes:,} B "
+                    f"read and written)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3473,17 +3597,25 @@ def main() -> int:
     idle = run("idle", phase_idle, np, torch, dev_cluster, card)
     serve_launches, serve_info = run("serving", phase_serving, np, torch,
                                      card, "cuda")
+    ssm_info = run("ssm update", phase_ssm_update, np, torch, card, "cuda")
     train_info = run("training", phase_training, np, torch, card, "cuda")
     shard_info = run("sharded", phase_sharded, np, torch, card, "cuda")
     say(card, "wall s by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in wall.items())
         + f"; total {time.perf_counter() - t0:.1f}")
+    errs = {k: p.max_abs_err for k, p in par.items()}
+    # The Mamba2 state update: phase 7's launches, phase 7b's numbers at the
+    # layer phase 7 serves (hymba-1.5b's).
+    ssm = kops.SSM_UPDATE.name
+    launches[ssm] = serve_launches[ssm]
+    times[ssm] = ssm_info[SSM_SHAPES[0][0]]
+    errs[ssm] = max(t["max_abs_err"] for t in ssm_info.values())
     kernels = []
     for k in kops.KERNELS:
         t = times[k.name]
         kernels.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=launches[k.name], max_abs_err=par[k.name].max_abs_err,
+            launches=launches[k.name], max_abs_err=errs[k.name],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
             bound_by=t["bound"][1], library_ms=None))
     out_dir = ROOT / "chiprun_out"
@@ -3492,6 +3624,7 @@ def main() -> int:
         card=card, kernels=kernels, slice=slice_info, table_path=table_info,
         txn=txn_info, txn_launches=txn_launches, times=times, idle=idle,
         serving=serve_info, serving_launches=serve_launches,
+        ssm_update=ssm_info,
         training=train_info, sharded=shard_info,
         wall_s=wall,
         ptxas=build.ptxas_reports()), indent=1, default=str))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's K5 (gang_record_groups), K9 (txn_probe), K10
-(witness_gc) and K11 (witness_record_seq) kernels of one checkout on the
-card, at the shapes that compare two trees.
+(witness_gc), K11 (witness_record_seq) and Mamba2 state-update
+(ssm_update) kernels of one checkout on the card, at the shapes that
+compare two trees.
 
     python3 scripts/torch_kernel_times.py [--src DIR]
 
@@ -20,8 +21,13 @@ in each (it accepts); K10 on the table of the gc chain (4096 random lanes
 recorded into an empty 1024 x 4 table) with one sync batch (G = 50) and
 the chain's batch (half the accepted lanes, about 1645) of its keys, and
 with 4096 entries of ``parity.gc_entries``' mix; K11 with 4096 queries
-into an empty 1024 x 4 table and an empty 4096 x 8 table.  Each call
-starts from the same state.  For
+into an empty 1024 x 4 table and an empty 4096 x 8 table; ssm_update at
+granite-4.0-h-small's layer as served (16 x 128 x 64 x 128, bf16, G = 1)
+and hymba-1.5b's (8 x 50 x 64 x 16), every row active, the 50 MB L2 cache
+flushed before each call (a decode step meets a layer's state cold), also
+with its plain version's time ("plain_ms") and its bound ("bound_ms": the
+state read and written once at 3.35e12 B/s).  Each other call starts from
+the same state.  For
 each: "ms", CUDA events around the wrapper's launch (mean of 50), and
 "device_ms", the kernel's device time per launch in a torch.profiler trace
 of 20 calls.  Prints one JSON object per shape and the card's name and
@@ -92,11 +98,12 @@ def main() -> int:
                 return us / e.count / 1e3
         return None
 
-    def report(kernel, shape, fn, restore):
+    def report(kernel, shape, fn, restore, **more):
         print(json.dumps(dict(src=str(src), kernel=kernel, shape=shape,
                               ms=event_ms(fn, restore),
                               device_ms=device_ms(fn, restore,
-                                                  kernel + "_kernel"))),
+                                                  kernel + "_kernel"),
+                              **more)),
               flush=True)
 
     rng = np.random.default_rng(SEED)
@@ -187,6 +194,28 @@ def main() -> int:
         report("witness_seq", f"{s}x{w},B=4096",
                lambda table=table, args=args: ops.witness_record_seq_cuda(
                    table, *args), clear)
+
+    from repro_torch.models.ssm import ssm_state_update_plain
+
+    flush = torch.empty(2 ** 27, dtype=torch.uint8, device=dev)
+    for shape in ((16, 128, 64, 128), (8, 50, 64, 16)):
+        B, H, P, N = shape
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        state = torch.randn(shape, generator=g, device=dev,
+                            dtype=torch.bfloat16)
+        dA = torch.rand((B, H), generator=g, device=dev).to(torch.bfloat16)
+        xdt = torch.randn((B, H, P), generator=g, device=dev,
+                          dtype=torch.bfloat16)
+        Bm, Cm = torch.randn((2, B, 1, N), generator=g, device=dev,
+                             dtype=torch.bfloat16)
+        active = torch.ones(B, dtype=torch.int32, device=dev)
+        operands = (state, dA, xdt, Bm, Cm, active)
+        plain = event_ms(lambda: ssm_state_update_plain(*operands),
+                         flush.zero_)
+        report("ssm_update", "x".join(map(str, shape)),
+               lambda: ops.ssm_state_update_cuda(*operands), flush.zero_,
+               plain_ms=plain,
+               bound_ms=2 * state.numel() * state.element_size() / 3.35e9)
     print(card)
     return 0
 

@@ -12,9 +12,9 @@ checkout (git-ignored), keyed by a hash of every source and the flags, so a
 changed source rebuilds and an unchanged one is reused within a checkout.
 ptxas's register and shared-memory report for each source is kept beside
 its library as ``<name>.log``.  They are loaded with ``ctypes``; pointers
-and the stream pass as ``c_void_p``, integers as ``c_int``, and every entry
-point returns ``cudaGetLastError()``, which :meth:`CudaKernel.call` turns
-into an exception.
+and the stream pass as ``c_void_p``, integers as ``c_int`` (strides as
+``c_longlong``), and every entry point returns ``cudaGetLastError()``,
+which :meth:`CudaKernel.call` turns into an exception.
 
 Nothing is built or loaded at import: the CPU tests import every module.
 """
@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p   # device pointer or stream
 I = ctypes.c_int
+L = ctypes.c_longlong   # a stride in elements
 
 
 def _nvcc() -> str:

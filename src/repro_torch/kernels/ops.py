@@ -41,7 +41,7 @@ import torch
 
 from ..core.telemetry import span
 from . import ref
-from .build import CudaKernel, I, P
+from .build import CudaKernel, I, L, P
 from .ref import GangTable, N_REASON_CODES, WitnessTable
 
 # ---------------------------------------------------------------------------
@@ -124,10 +124,16 @@ WITNESS_RECORD_SEQ = CudaKernel(
     {"witness_seq_launch": [I, P, P, I, I] + [P] * 5,
      "witness_seq_path": [I, I, ctypes.POINTER(ctypes.c_int)]})
 
+SSM_UPDATE = CudaKernel(
+    "ssm_state_update", _CSRC + "ssm_update.cu",
+    "none: src/repro/models/ssm.py ssm_decode is plain jnp",
+    {"ssm_update_launch": [I] * 6 + [P] * 2 + [L] * 2 + [P] + [L] * 3
+     + [P] + [L] * 3 + [P] + [L] * 3 + [P, L, P, P]})
+
 GANG_KERNELS = (GANG_RECORD, GANG_FASTPATH, GANG_GC, GANG_GROUPS)
 TABLE_KERNELS = (KEYHASH, WITNESS_RECORD, FASTPATH_RECORD_SCAN, CONFLICT_SCAN)
 TXN_KERNELS = (TXN_PROBE, WITNESS_GC, WITNESS_RECORD_SEQ)
-KERNELS = GANG_KERNELS + TABLE_KERNELS + TXN_KERNELS
+KERNELS = GANG_KERNELS + TABLE_KERNELS + TXN_KERNELS + (SSM_UPDATE,)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -473,6 +479,68 @@ def witness_record_seq_cuda(table: WitnessTable, q_hi, q_lo) -> torch.Tensor:
                             _ptr(accepted), _stream(dev))
     WITNESS_RECORD_SEQ.launches += 1
     return accepted
+
+
+# The state sizes and types ssm_update.cu is instantiated for.
+SSM_STATE_SIZES = (16, 128)
+_SSM_TYPES = (torch.bfloat16, torch.float32)
+
+
+def ssm_state_update_cuda(state: torch.Tensor, dA: torch.Tensor,
+                          xdt: torch.Tensor, Bm: torch.Tensor,
+                          Cm: torch.Tensor,
+                          active: torch.Tensor) -> torch.Tensor:
+    """One Mamba2 layer's single-token state update on the card, one launch
+    of ``ssm_update.cu``: ``state`` [B, H, P, N] is written IN PLACE where
+    ``active`` [B] (int32) is > 0, and y [B, H, P] is returned for every
+    row; see ``models.ssm.ssm_state_update_plain`` for the contract.
+    The state is contiguous; ``dA`` [B, H], ``xdt`` [B, H, P], ``Bm`` and
+    ``Cm`` [B, G, N] and ``active`` may be views with any strides, and
+    every float operand has the state's type (bf16 or f32).  Anything
+    else, or a tensor off the card, raises."""
+    if state.dim() != 4:
+        raise ValueError(f"ssm_state_update takes a [B, H, P, N] state, got "
+                         f"{tuple(state.shape)}")
+    B, H, P, N = state.shape
+    G = Bm.shape[1] if Bm.dim() == 3 else 0
+    if N not in SSM_STATE_SIZES:
+        raise ValueError(f"ssm_state_update is built for state sizes "
+                         f"{SSM_STATE_SIZES}, got N = {N}")
+    if state.dtype not in _SSM_TYPES or any(
+            t.dtype != state.dtype for t in (dA, xdt, Bm, Cm)) \
+            or active.dtype != torch.int32:
+        raise ValueError(
+            f"ssm_state_update takes one float type of {_SSM_TYPES} and an "
+            f"int32 active mask, got state {state.dtype}, dA {dA.dtype}, "
+            f"xdt {xdt.dtype}, B {Bm.dtype}, C {Cm.dtype}, active "
+            f"{active.dtype}")
+    if G == 0 or H % G:
+        raise ValueError(f"ssm_state_update: B is {tuple(Bm.shape)}, wanted "
+                         f"[B, G, N] with G dividing H = {H}")
+    for name, t, want in (("dA", dA, (B, H)), ("xdt", xdt, (B, H, P)),
+                          ("B", Bm, (B, G, N)), ("C", Cm, (B, G, N)),
+                          ("active", active, (B,))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"ssm_state_update: {name} is "
+                             f"{tuple(t.shape)}, wanted {want}")
+    if not state.is_contiguous() or state.data_ptr() % 16:
+        raise ValueError("ssm_state_update takes a contiguous state on a "
+                         "16-byte boundary")
+    dev = state.device
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in (dA, xdt, Bm, Cm, active)):
+        raise ValueError(f"ssm_state_update runs on one CUDA device, got "
+                         f"the state on {dev}")
+    y = torch.empty((B, H, P), dtype=state.dtype, device=dev)
+    if state.numel() == 0:
+        return y
+    SSM_UPDATE.call("ssm_update_launch", int(state.dtype == torch.bfloat16),
+                    N, B, H, P, G, _ptr(state),
+                    *(a for t in (dA, xdt, Bm, Cm, active)
+                      for a in (_ptr(t), *t.stride())),
+                    _ptr(y), _stream(dev))
+    SSM_UPDATE.launches += 1
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -1115,4 +1183,5 @@ __all__ = [
     "witness_record_seq", "dispatch_count", "reset_dispatch_count",
     "launch_counts", "reset_launch_counts", "KERNELS", "GANG_KERNELS",
     "TABLE_KERNELS", "TXN_KERNELS", "CudaKernel",
+    "SSM_STATE_SIZES", "ssm_state_update_cuda",
 ]

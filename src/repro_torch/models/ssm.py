@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.ops import ssm_state_update_cuda
 from .config import ModelConfig
 from .layers import Init
 from .shardctx import constrain, merge_dims
@@ -177,13 +178,39 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype,
     }
 
 
+def ssm_state_update_plain(
+    state: torch.Tensor, dA: torch.Tensor, xdt: torch.Tensor,
+    Bm: torch.Tensor, Cm: torch.Tensor, active: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 single-token state update of one layer, in plain PyTorch
+    (the plain version of ``kernels/csrc/ssm_update.cu``).  ``state`` [B,
+    H, P, N]; ``dA`` [B, H] and ``xdt`` [B, H, P] (x * dt) in the state's
+    type; ``Bm``, ``Cm`` [B, G, N], head h reading group h // (H // G).
+    Returns (the new state, with rows where ``active`` is 0 kept as they
+    were, and y [B, H, P] read out of the new state for every row).  New
+    tensors; ``state`` is not written."""
+    rep = state.shape[1] // Bm.shape[1]
+    Bm = Bm.repeat_interleave(rep, dim=1)                      # [B,H,N]
+    Cm = Cm.repeat_interleave(rep, dim=1)
+    st = state * dA[..., None, None] + torch.einsum(
+        "bhp,bhn->bhpn", xdt, Bm).to(state.dtype)
+    y = torch.einsum("bhpn,bhn->bhp", st, Cm)
+    if active is not None:
+        st = torch.where((active > 0)[:, None, None, None], st, state)
+    return st, y
+
+
 def ssm_decode(
     cfg: ModelConfig, p: SSM, u: torch.Tensor, cache: Dict,
     active: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Single-token recurrent step: u [B, 1, D].  Rows with active==0 keep
     their state and conv window unchanged (mixed-length serving batches).
-    Returns new tensors; the cache given is not written."""
+    The state update runs as one launch of ``ssm_update.cu`` on a CUDA
+    state, which it writes in place (the returned dict then holds the
+    cache's own state tensor), and as ``ssm_state_update_plain`` elsewhere;
+    every other tensor returned is new, and the conv window is not
+    written."""
     B = u.shape[0]
     di, g, N, h = cfg.ssm_d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     P = cfg.ssm_head_dim
@@ -198,21 +225,23 @@ def ssm_decode(
 
     x, Bm, Cm = torch.split(xBC, [di, g * N, g * N], dim=-1)
     x = x.reshape(B, h, P)
-    Bm = Bm.reshape(B, g, N).repeat_interleave(h // g, dim=1)  # [B,h,N]
-    Cm = Cm.reshape(B, g, N).repeat_interleave(h // g, dim=1)
+    Bm = Bm.reshape(B, g, N)
+    Cm = Cm.reshape(B, g, N)
     dt = F.softplus(dt.float() + p.dt_bias.float())
     A = -torch.exp(p.A_log.float())
-    dA = torch.exp(dt * A)                                     # [B,h]
     st = cache["state"]
-    st = st * dA[..., None, None].to(st.dtype) + torch.einsum(
-        "bhp,bhn->bhpn", x * dt[..., None].to(x.dtype), Bm
-    ).to(st.dtype)
-    y = torch.einsum("bhpn,bhn->bhp", st, Cm)
+    dA = torch.exp(dt * A).to(st.dtype)                        # [B,h]
+    xdt = x * dt[..., None].to(x.dtype)
+    if st.is_cuda:
+        mask = (torch.ones((B,), dtype=torch.int32, device=st.device)
+                if active is None else active.to(torch.int32))
+        y = ssm_state_update_cuda(st, dA, xdt, Bm, Cm, mask)
+    else:
+        st, y = ssm_state_update_plain(st, dA, xdt, Bm, Cm, active)
     y = y + x * p.D[None, :, None]
     y = _gated_rmsnorm(y.reshape(B, di), z, p.ssm_norm, cfg.norm_eps)
     out = (y @ p.out_proj)[:, None, :]
     if active is not None:
         keep = active > 0
-        st = torch.where(keep[:, None, None, None], st, cache["state"])
         new_conv = torch.where(keep[:, None, None], new_conv, cache["conv"])
     return out, {"state": st, "conv": new_conv}

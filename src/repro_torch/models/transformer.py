@@ -341,7 +341,8 @@ def _block_decode(cfg: ModelConfig, p: Block, x, entry, j: int, cur_pos,
         cache = {name: t[j] for name, t in entry["ssm"].items()}
         o, new = ssm_decode(cfg, p.ssm, h, cache, active)
         for name, t in new.items():
-            cache[name].copy_(t)
+            if t is not cache[name]:       # not written in place already
+                cache[name].copy_(t)
         parts.append(o)
     mix = parts[0] if len(parts) == 1 else (parts[0] + parts[1]) * 0.5
     x = _residual(cfg, x, mix)

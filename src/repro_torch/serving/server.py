@@ -33,6 +33,7 @@ import torch
 
 from ..core import WitnessGeometry
 from ..core.telemetry import enabled, get_registry, span
+from ..kernels.ops import SSM_UPDATE
 from ..models.config import ModelConfig
 from ..models.moe import RoutingTally
 from ..models.transformer import (
@@ -108,6 +109,11 @@ class CurpServeDriver:
         self._m_rows = reg.counter("moe.rows_computed")
         self._m_routed = reg.counter("moe.routed")
         self._rows_a_step = self._picks_a_row = 0
+        # The Mamba2 layers whose state the step updates in one launch of
+        # ``ssm_update.cu`` (its launches as the step was built; none on
+        # the CPU), counted here at each step.
+        self._m_fused = reg.counter("ssm.fused_updates")
+        self._fused_a_step = 0
 
     @torch.no_grad()
     def _step_body(self, inputs: torch.Tensor):
@@ -116,8 +122,10 @@ class CurpServeDriver:
         Returns (f32 logits [B, V], greedy tokens [B])."""
         batch = {"tokens": inputs[0][:, None], "active": inputs[1]}
         tally = RoutingTally(inputs[1]) if self._count_routing else None
+        launched = SSM_UPDATE.launches
         logits, _ = decode_step(self.cfg, self.params, batch, self.cache,
                                 tally)
+        self._fused_a_step = SSM_UPDATE.launches - launched
         if tally is not None:
             self._rows_a_step = tally.rows
             self._picks_a_row = tally.picks_a_row
@@ -145,8 +153,9 @@ class CurpServeDriver:
         return self._logits.clone()    # the next replay overwrites _logits
 
     def _count(self, host: np.ndarray) -> None:
-        """An MoE step's routing counts, on the host: ``host[1]`` is the
-        step's active mask."""
+        """A step's host counts: its fused Mamba2 state updates, and an MoE
+        step's routing (``host[1]`` is the step's active mask)."""
+        self._m_fused.inc(self._fused_a_step)
         if self._count_routing:
             self._m_rows.inc(self._rows_a_step)
             self._m_routed.inc(self._picks_a_row

@@ -654,3 +654,141 @@ def test_reduced_trainer_recovers_bit_exact_on_the_card(cuda, arch,
     assert a.params.embed.device.type == "cuda"
     np.testing.assert_allclose([m["loss"] for m in a.metrics_log],
                                [m["loss"] for m in c.metrics_log], rtol=1e-4)
+
+
+# The Mamba2 state update (``ssm_update.cu``) against its plain version:
+# (name, B, H, P, N, G, dtype).  granite-4.0-h-small's and hymba-1.5b's
+# layers as served, heads sharing groups, and f32 (the reduced configs
+# the card runs in f32 take the kernel too).
+SSM_SHAPES = [
+    ("granite", 16, 128, 64, 128, 1, torch.bfloat16),
+    ("hymba", 8, 50, 64, 16, 1, torch.bfloat16),
+    ("groups", 4, 8, 32, 128, 4, torch.bfloat16),
+    ("f32", 4, 8, 16, 16, 2, torch.float32),
+    ("f32-wide", 2, 4, 16, 128, 1, torch.float32),
+]
+
+
+def _ssm_operands(device, B, H, P, N, G, dtype, seed=0):
+    """A state, its step's operands and an active mask with rows off.  B
+    and C are views of one wider row laid out batch-fastest and xdt is
+    permuted, as ``ssm_decode`` finds them after its conv's einsum."""
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(*shape, lo=None):
+        t = torch.randn(shape, generator=g)
+        if lo is not None:
+            t = lo + (1 - lo) * torch.rand(shape, generator=g)
+        return t.to(device=device, dtype=dtype)
+
+    row = draw(2 * G * N + 8, B).t()
+    Bm = row[:, 8:8 + G * N].reshape(B, G, N)
+    Cm = row[:, 8 + G * N:].reshape(B, G, N)
+    xdt = (draw(P, H, B) * 0.5).permute(2, 1, 0)
+    active = torch.ones(B, dtype=torch.int32)
+    active[1::3] = 0
+    return (draw(B, H, P, N), draw(B, H, lo=0.5), xdt, Bm, Cm,
+            active.to(device))
+
+
+@pytest.mark.parametrize("shape", SSM_SHAPES, ids=[s[0] for s in SSM_SHAPES])
+def test_ssm_state_update_kernel_matches_plain_version(cuda, shape):
+    """The kernel's state is the plain path's bit for bit (the same
+    products and sum, each rounded where the plain path rounds), active
+    rows updated and inactive ones untouched, in one launch.  y is read
+    out of the new state for every row and may differ only by the order
+    of its f32 sum: each side rounds that sum once to the state's type
+    (2^-8 of |y| each in bf16) and two f32 sums of N <= 128 terms in other
+    orders part by at most 2 x 128 x 2^-24 of the terms' absolute sum,
+    hence |y - y_plain| <= 2^-7 |y_plain| + 2^-14 sum_n |new C|."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.ssm import ssm_state_update_plain
+
+    _name, B, H, P, N, G, dtype = shape
+    state, dA, xdt, Bm, Cm, active = _ssm_operands(cuda, B, H, P, N, G,
+                                                   dtype)
+    want, y_want = ssm_state_update_plain(state, dA, xdt, Bm, Cm, active)
+    new_all, _ = ssm_state_update_plain(state, dA, xdt, Bm, Cm, None)
+    got = state.clone()
+    before = ops.SSM_UPDATE.launches
+    y = ops.ssm_state_update_cuda(got, dA, xdt, Bm, Cm, active)
+    torch.cuda.synchronize()
+    assert ops.SSM_UPDATE.launches == before + 1
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+    off = active == 0
+    assert torch.equal(got[off].view(bits), state[off].view(bits))
+    assert not torch.equal(got[~off], state[~off])
+    Ch = Cm.repeat_interleave(H // G, dim=1).float()
+    terms = (new_all.float() * Ch[:, :, None, :]).abs().sum(-1)
+    gap = (y.float() - y_want.float()).abs()
+    assert bool((gap <= 2**-7 * y_want.float().abs()
+                 + 2**-14 * terms).all()), float(gap.max())
+
+
+def test_granite_decode_step_updates_each_mamba_state_in_one_launch(cuda):
+    """granite-4.0-h-small at its published widths and four layers
+    (Mamba2, attention, Mamba2, Mamba2), 16 rows as served, in bf16: one
+    eager ``decode_step`` launches the state-update kernel once a Mamba2
+    layer, and no PyTorch operation reads a state-sized tensor (the plain
+    path's multiplies, sum, read-out, ``where`` and copy back are gone)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import Transformer, decode_step, init_decode_cache
+
+    cfg = replace(ARCHS["granite-4.0-h-small"], n_layers=4,
+                  layer_types=("mamba", "attention", "mamba", "mamba"),
+                  dtype="bfloat16", moe_dispatch="capacity")
+    model = Transformer(cfg, device=cuda, seed=1)
+    B = 16
+    cache = init_decode_cache(cfg, B, 64, device=cuda)
+    rng = np.random.default_rng(3)
+
+    def step():
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1))).int()
+        act = torch.ones(B, dtype=torch.int32)
+        act[5] = 0
+        decode_step(cfg, model, {"tokens": toks.to(cuda),
+                                 "active": act.to(cuda)}, cache)
+
+    step()                                     # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = ops.SSM_UPDATE.launches
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    assert ops.SSM_UPDATE.launches == before + 3
+    state_shape = [B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state]
+    assert state_shape == [16, 128, 64, 128]
+    readers = {e.name for e in prof.events()
+               if state_shape in [list(s) for s in e.input_shapes]
+               and e.kernels}
+    assert not readers, readers
+    launched = sum(e.count for e in prof.key_averages()
+                   if "ssm_update_kernel" in e.key)
+    assert launched == 3, launched
+
+
+def test_driver_counts_fused_state_updates_on_the_card(cuda):
+    """``ssm.fused_updates``: the driver adds the captured step's Mamba2
+    layers (three in the reduced granite) at every replay."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.telemetry import registry
+    from repro_torch.models import Transformer, reduced
+    from repro_torch.serving import CurpServeDriver, ServeConfig
+
+    cfg = reduced(ARCHS["granite-4.0-h-small"], dtype="bfloat16",
+                  moe_dispatch="capacity")
+    d = CurpServeDriver(cfg, ServeConfig(max_batch=4, max_seq=32,
+                                         device=cuda),
+                        params=Transformer(cfg, device=cuda, seed=2))
+    counter = registry().counter("ssm.fused_updates")
+    before = counter.value
+    d.submit("a", [5, 17, 99])
+    d.generate(4)
+    assert d.graph_replays == 6
+    assert counter.value - before == 3 * d.graph_replays

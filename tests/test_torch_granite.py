@@ -316,3 +316,157 @@ def test_benchmark_config_is_the_arch_and_the_catalog_row():
         FULL.embedding_multiplier, FULL.residual_multiplier,
         FULL.attention_multiplier, FULL.logits_scaling)
     assert c["position_embedding_type"] == "nope" and FULL.pos == "none"
+
+
+# --------------------------------------------------------------------------
+# The Mamba2 state update: one kernel on the card, today's formula here
+# --------------------------------------------------------------------------
+def _ssm_decode_before_the_kernel(cfg, p, u, cache, active=None):
+    """``ssm_decode`` as it was written before the state update became one
+    kernel on the card: the formula the CPU path must keep bit for bit."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.ssm import _gated_rmsnorm, _split_in_proj
+
+    B = u.shape[0]
+    di, g, N, h = cfg.ssm_d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    P = cfg.ssm_head_dim
+    zxbcdt = u[:, 0, :] @ p.in_proj
+    z, xBC, dt = _split_in_proj(cfg, zxbcdt)
+    win = torch.cat([cache["conv"], xBC[:, None, :]], dim=1)
+    conv = torch.einsum("bkc,kc->bc", win, p.conv_w) + p.conv_b
+    new_conv = win[:, 1:, :]
+    xBC = F.silu(conv)
+    x, Bm, Cm = torch.split(xBC, [di, g * N, g * N], dim=-1)
+    x = x.reshape(B, h, P)
+    Bm = Bm.reshape(B, g, N).repeat_interleave(h // g, dim=1)
+    Cm = Cm.reshape(B, g, N).repeat_interleave(h // g, dim=1)
+    dt = F.softplus(dt.float() + p.dt_bias.float())
+    A = -torch.exp(p.A_log.float())
+    dA = torch.exp(dt * A)
+    st = cache["state"]
+    st = st * dA[..., None, None].to(st.dtype) + torch.einsum(
+        "bhp,bhn->bhpn", x * dt[..., None].to(x.dtype), Bm
+    ).to(st.dtype)
+    y = torch.einsum("bhpn,bhn->bhp", st, Cm)
+    y = y + x * p.D[None, :, None]
+    y = _gated_rmsnorm(y.reshape(B, di), z, p.ssm_norm, cfg.norm_eps)
+    out = (y @ p.out_proj)[:, None, :]
+    if active is not None:
+        keep = active > 0
+        st = torch.where(keep[:, None, None, None], st, cache["state"])
+        new_conv = torch.where(keep[:, None, None], new_conv, cache["conv"])
+    return out, {"state": st, "conv": new_conv}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", NAME])
+def test_cpu_ssm_decode_keeps_the_formula_bit_for_bit(arch, dtype):
+    """On the CPU ``ssm_decode`` is the formula it was before the kernel,
+    bit for bit (its state update now ``ssm_state_update_plain``), with
+    and without an active mask, and writes nothing of the cache given."""
+    from repro_torch.models.ssm import ssm_decode
+
+    cfg = tm.reduced(ARCHS[arch], dtype=dtype, ssm_groups=2)
+    model = _model(cfg, seed=3).to(getattr(torch, dtype))
+    p = model.blocks[0].ssm
+    B, dt = 5, getattr(torch, dtype)
+    g = torch.Generator().manual_seed(7)
+    u = torch.randn((B, 1, cfg.d_model), generator=g).to(dt)
+    cache = {"state": torch.randn((B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                   cfg.ssm_state), generator=g).to(dt),
+             "conv": torch.randn((B, cfg.ssm_conv - 1, cfg.ssm_conv_dim),
+                                 generator=g).to(dt)}
+    kept = {k: t.clone() for k, t in cache.items()}
+    for active in (torch.tensor([1, 0, 1, 1, 0], dtype=torch.int32), None):
+        got_out, got = ssm_decode(cfg, p, u, cache, active)
+        want_out, want = _ssm_decode_before_the_kernel(cfg, p, u, cache,
+                                                       active)
+        assert torch.equal(got_out, want_out)
+        for name in ("state", "conv"):
+            assert torch.equal(got[name], want[name])
+            assert torch.equal(cache[name], kept[name])
+            assert got[name] is not cache[name]
+
+
+def test_block_decode_leaves_the_cache_equal_written_in_place_or_not(
+        monkeypatch):
+    """``_block_decode`` copies a mixer's new tensors into the cache and
+    skips those the mixer already wrote there (the card's state update):
+    a mixer that writes in place leaves the same cache and logits."""
+    import repro_torch.models.transformer as tr
+
+    real = tr.ssm_decode
+
+    def in_place(cfg, p, u, cache, active=None):
+        out, new = real(cfg, p, u, cache, active)
+        for name, t in new.items():
+            cache[name].copy_(t)
+            new[name] = cache[name]
+        return out, new
+
+    cfg = _cfg()
+    model = _model(cfg, seed=5)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab, (6, 3, 1))
+    acts = rng.integers(0, 2, (6, 3))
+    runs = []
+    for mixer in (real, in_place):
+        monkeypatch.setattr(tr, "ssm_decode", mixer)
+        cache = tm.init_decode_cache(cfg, 3, 16, device="cpu")
+        logits = [tm.decode_step(cfg, model, {
+            "tokens": torch.from_numpy(t).int(),
+            "active": torch.from_numpy(a).int()}, cache)[0]
+            for t, a in zip(toks, acts)]
+        runs.append((logits, tm.cache_tensors(cache)))
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(a, b)
+    assert any(t.abs().sum() > 0 for t in runs[1][1][1:])
+
+
+def _update_operands(N=16, dtype=torch.bfloat16, B=2, H=4, P=8, G=2):
+    return (torch.zeros((B, H, P, N), dtype=dtype),
+            torch.zeros((B, H), dtype=dtype),
+            torch.zeros((B, H, P), dtype=dtype),
+            torch.zeros((B, G, N), dtype=dtype),
+            torch.zeros((B, G, N), dtype=dtype),
+            torch.ones((B,), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "one CUDA device"), ("N", "state sizes"),
+    ("dtype", "one float type"), ("strided", "contiguous state"),
+])
+def test_state_update_kernel_refuses_what_it_is_not_built_for(case, match):
+    """The kernel's wrapper raises, never falls back: on a CPU tensor, a
+    state size it is not built for (16 and 128 are), a type other than
+    bf16 or f32 (or operands of mixed types), a state that is not
+    contiguous."""
+    from repro_torch.kernels.ops import SSM_STATE_SIZES, ssm_state_update_cuda
+
+    assert SSM_STATE_SIZES == (16, 128)
+    ops = list(_update_operands(
+        N=32 if case == "N" else 16,
+        dtype=torch.float16 if case == "dtype" else torch.bfloat16))
+    if case == "strided":
+        ops[0] = torch.zeros((2, 4, 16, 8),
+                             dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match=match):
+        ssm_state_update_cuda(*ops)
+
+
+def test_fused_update_counter_reads_zero_on_the_cpu():
+    """``ssm.fused_updates`` counts the Mamba2 layers a step updated in one
+    launch: none on the CPU, where the plain state update runs."""
+    from repro_torch.kernels.ops import SSM_UPDATE
+
+    cfg = _cfg()
+    d = CurpServeDriver(cfg, ServeConfig(max_batch=2, max_seq=32,
+                                         device="cpu"),
+                        params=_model(cfg, seed=1))
+    counter = registry().counter("ssm.fused_updates")
+    before, launched = counter.value, SSM_UPDATE.launches
+    d.submit("a", [3, 1, 4])
+    d.generate(3)
+    assert counter.value == before and SSM_UPDATE.launches == launched
+    assert len(d.sessions["a"].tokens) == 6
