@@ -38,8 +38,8 @@ computed against the pre-op table and writes happen only when the whole op
 accepted — ONE dispatch whether the op accepts or rejects, for a whole batch
 of multi-key ops at once.  The pre-refactor record-then-rollback scheme
 (2 dispatches on the reject path) is kept as ``_record_keys_rollback`` for
-the old-vs-new comparison that the JAX package's benchmarks/fig_txn.py
-makes; the port's counterpart of that benchmark is still to come.
+the old-vs-new comparison that ``chip_smoke.py``'s transaction phase makes,
+as the JAX package's benchmarks/fig_txn.py does.
 """
 from __future__ import annotations
 
@@ -103,9 +103,10 @@ class WitnessGang:
 
     Owns the single :class:`repro_torch.kernels.GangTable` that every
     attached ``DeviceWitness`` records into; lanes are allocated on
-    ``start`` and recycled on ``end``.  The lane count grows by doubling (a
-    device-side concat of zero rows) so the lane count stays a power of two,
-    as the JAX package's tiling required.
+    ``start`` and recycled on ``end``.  The gang starts with the least power
+    of two lanes that holds ``n_lanes`` witnesses and grows by doubling (a
+    device-side concat of zero rows), so the lane count stays a power of
+    two, as the JAX package's tiling required.
 
     The gang lives on ``device``: ``"cuda"`` (the default) runs the CUDA
     kernels and raises when no CUDA device is present; ``"cpu"`` runs
@@ -117,11 +118,10 @@ class WitnessGang:
         from ..kernels import N_REASON_CODES, GangTable
         from ..kernels.ref import resolve_device
 
-        assert n_lanes & (n_lanes - 1) == 0, "n_lanes must be a power of two"
         self.device = device = resolve_device(device)
         self.n_sets = n_sets
         self.n_ways = n_ways
-        self.n_lanes = n_lanes
+        self.n_lanes = n_lanes = 1 << max(n_lanes - 1, 0).bit_length()
         self.table = GangTable.empty(n_sets, n_ways, n_lanes, device)
         # In-dispatch telemetry plane: [n_lanes, 5] reason-code counters the
         # record kernels accumulate into (flight recorder).  Drained and
@@ -238,10 +238,7 @@ class DeviceWitness:
         request: Op,
     ) -> RecordStatus:
         """Single-op record: a group of one through the grouped kernel."""
-        if self.mode is not WitnessMode.NORMAL or master_id != self.master_id:
-            self.stats["rejects_mode"] += 1
-            return RecordStatus.REJECTED
-        return self._record_keys(key_hashes, rpc_id, request)
+        return record_many([self], master_id, key_hashes, rpc_id, request)[0]
 
     def record_batch(self, master_id: int, ops: List[Op]) -> List[RecordStatus]:
         """Whole-batch record, ONE kernel dispatch, any mix of group sizes.
@@ -260,7 +257,11 @@ class DeviceWitness:
 
         pairs = [op.hash_classes() for op in ops]
         if any(len(p) != 1 for p in pairs):
-            return self._record_groups(ops, pairs)
+            # Groups are the ops' lattice pairs: HMSET contributes its
+            # derived per-field FIELD sub-hashes, so field overlap
+            # conflicts in-kernel.
+            return _record_groups([(self, p, op.rpc_id, op)
+                                   for op, p in zip(ops, pairs)])
         khs = [p[0][0] for p in pairs]
         kcls = np.fromiter((p[0][1] for p in pairs), np.int32, len(pairs))
         hi, lo = _lanes(khs)
@@ -278,45 +279,6 @@ class DeviceWitness:
                          ops[i].rpc_id, ops[i], [int(kcls[i])])
             for i in range(len(ops))
         ]
-
-    def _record_groups(self, ops: List[Op], pairs=None) -> List[RecordStatus]:
-        """Batch of (possibly multi-pair) ops via the grouped kernel: every
-        op resolves all-or-nothing, whole batch in ONE dispatch.  Groups are
-        the ops' lattice pairs — HMSET contributes its derived per-field
-        FIELD sub-hashes, so field overlap conflicts in-kernel."""
-        from ..kernels import gang_record_groups
-
-        if pairs is None:
-            pairs = [op.hash_classes() for op in ops]
-        G = len(pairs)
-        K = max(len(p) for p in pairs)
-        khi = np.zeros((G, K), np.uint32)
-        klo = np.zeros((G, K), np.uint32)
-        kval = np.zeros((G, K), np.int32)
-        kcls = np.zeros((G, K), np.int32)
-        for g, p in enumerate(pairs):
-            hi, lo = _lanes([kh for kh, _c in p])
-            khi[g, :len(p)] = hi
-            klo[g, :len(p)] = lo
-            kval[g, :len(p)] = 1
-            kcls[g, :len(p)] = [c for _kh, c in p]
-        rhi, rlo = _rpc_lanes([op.rpc_id for op in ops])
-        lanes = np.full(G, self.lane, np.int32)
-        res = gang_record_groups(
-            self.gang.table, self.n_sets, khi, klo, kval, lanes, rhi, rlo,
-            kcls, counters=self.gang.counters,
-        )
-        self.gang.table = res.table
-        self.gang.counters = res.counters
-        self.stats["kernel_batches"] += 1
-        out = []
-        for g, op in enumerate(ops):
-            keys = [(int(res.q_hi[g, k]), int(res.q_lo[g, k]))
-                    for k in range(len(pairs[g]))]
-            out.append(self._settle(int(res.reasons[g]), keys,
-                                    op.rpc_id, op,
-                                    [c for _kh, c in pairs[g]]))
-        return out
 
     def _settle(self, reason: int, keys: List[Tuple[int, int]],
                 rpc_id: RpcId, request: Op,
@@ -347,7 +309,8 @@ class DeviceWitness:
         whether the op accepts or rejects (the kernel leaves the table
         bit-identical on reject, so no rollback gc).  Dup/conflict verdicts
         come from the kernel-held rpc lanes — no host mirror input."""
-        return _record_at([self], key_hashes, rpc_id, request)[0]
+        return _record_groups([(self, _op_pairs(key_hashes, request), rpc_id,
+                                request)])[0]
 
     def _record_keys_rollback(self, key_hashes: Tuple[int, ...], rpc_id: RpcId,
                               request: Op) -> RecordStatus:
@@ -397,10 +360,7 @@ class DeviceWitness:
     # -- master -> witness ----------------------------------------------------
     def gc(self, entries: Tuple[Tuple[int, RpcId], ...]) -> GcResp:
         """Drop synced records (one gang gc dispatch); report suspects."""
-        if self.mode is not WitnessMode.NORMAL:
-            return GcResp(stale_requests=())
-        resps = gc_many([self], entries)
-        return resps[0]
+        return gc_many([self], entries)[0]
 
     def _apply_gc(self, keys: List[Tuple[int, int]],
                   rpc_ids: List[RpcId], cleared) -> GcResp:
@@ -476,11 +436,9 @@ def record_many(witnesses: Sequence[DeviceWitness], master_id: int,
     of the grouped kernel: the op's keys, classes and rpc at the witness's
     lane.  Lanes are disjoint, so each group resolves exactly as that
     witness's own ``record`` would; a witness not in NORMAL mode, or serving
-    another master, rejects without a group.  Returns one status per
-    witness, in order.
+    another master, rejects without a group, and with no group there is no
+    dispatch.  Returns one status per witness, in order.
     """
-    from .telemetry import registry
-
     out = [RecordStatus.REJECTED] * len(witnesses)
     live = []
     for i, w in enumerate(witnesses):
@@ -489,47 +447,57 @@ def record_many(witnesses: Sequence[DeviceWitness], master_id: int,
         else:
             w.stats["rejects_mode"] += 1
     if live:
-        got = _record_at([witnesses[i] for i in live], key_hashes, rpc_id,
-                         request)
+        pairs = _op_pairs(key_hashes, request)
+        got = _record_groups([(witnesses[i], pairs, rpc_id, request)
+                              for i in live])
         for i, st in zip(live, got):
             out[i] = st
-        registry().counter("witness.grouped_records").inc(len(live))
     return out
 
 
-def _record_at(witnesses: Sequence[DeviceWitness],
-               key_hashes: Tuple[int, ...], rpc_id: RpcId,
-               request: Op) -> List[RecordStatus]:
-    """One op's record at each of ``witnesses`` (NORMAL, one gang): a group
-    a witness at its lane, ONE grouped-kernel dispatch; each witness
-    settles its own group."""
+def _record_groups(
+    groups: Sequence[Tuple[DeviceWitness, Sequence[Tuple[int, int]], RpcId,
+                           Op]],
+) -> List[RecordStatus]:
+    """ONE grouped-kernel dispatch: each group, a (witness, pairs, rpc_id,
+    request), records the op's (key_hash, class) pairs at its witness's
+    lane, all or nothing, in group order.  One op at many witnesses (a
+    group a lane) and many ops at one witness (a group an op) are both
+    this call.  Each group settles at its witness, and each witness counts
+    one kernel batch."""
     from ..kernels import gang_record_groups
 
-    gang = witnesses[0].gang
-    assert all(w.gang is gang for w in witnesses), \
+    gang = groups[0][0].gang
+    assert all(w.gang is gang for w, *_ in groups), \
         "witnesses must share a gang"
-    pairs = _op_pairs(key_hashes, request)
-    G, K = len(witnesses), len(pairs)
-    hi, lo = _lanes([kh for kh, _c in pairs])
-    classes = [c for _kh, c in pairs]
+    G = len(groups)
+    K = max(len(pairs) for _w, pairs, *_ in groups)
+    khi = np.zeros((G, K), np.uint32)
+    klo = np.zeros((G, K), np.uint32)
+    kval = np.zeros((G, K), np.int32)
+    kcls = np.zeros((G, K), np.int32)
+    for g, (_w, pairs, _rpc, _req) in enumerate(groups):
+        n = len(pairs)
+        khi[g, :n], klo[g, :n] = _lanes([kh for kh, _c in pairs])
+        kval[g, :n] = 1
+        kcls[g, :n] = [c for _kh, c in pairs]
+    rhi, rlo = _rpc_lanes([rpc for _w, _p, rpc, _req in groups])
     res = gang_record_groups(
-        gang.table, gang.n_sets, np.tile(hi, (G, 1)), np.tile(lo, (G, 1)),
-        np.ones((G, K), np.int32),
-        np.fromiter((w.lane for w in witnesses), np.int32, G),
-        np.full(G, rpc_id[0] & _M32, np.uint32),
-        np.full(G, rpc_id[1] & _M32, np.uint32),
-        np.tile(np.asarray(classes, np.int32).reshape(1, K), (G, 1)),
-        counters=gang.counters,
+        gang.table, gang.n_sets, khi, klo, kval,
+        np.fromiter((w.lane for w, *_ in groups), np.int32, G), rhi, rlo,
+        kcls, counters=gang.counters,
     )
     gang.table = res.table
     gang.counters = res.counters
-    out = []
-    for g, w in enumerate(witnesses):
+    for w in dict.fromkeys(w for w, *_ in groups):
         w.stats["kernel_batches"] += 1
-        keys = [(int(res.q_hi[g, k]), int(res.q_lo[g, k])) for k in range(K)]
-        out.append(w._settle(int(res.reasons[g]), keys, rpc_id, request,
-                             classes))
-    return out
+    return [
+        w._settle(int(res.reasons[g]),
+                  [(int(res.q_hi[g, k]), int(res.q_lo[g, k]))
+                   for k in range(len(pairs))],
+                  rpc, req, [c for _kh, c in pairs])
+        for g, (w, pairs, rpc, req) in enumerate(groups)
+    ]
 
 
 def gc_many(witnesses: Sequence[DeviceWitness],
@@ -539,41 +507,42 @@ def gc_many(witnesses: Sequence[DeviceWitness],
     Entries are lane-expanded (every witness gets its own copy targeting its
     lane) and deduplicated per (key, rpc) — the Python reference clears a
     slot once however many times the pair appears.  Aging covers exactly
-    the participating lanes.  Returns one GcResp per witness, in order.
+    the participating lanes.  A witness not in NORMAL mode takes no part and
+    gets an empty response, as its own ``gc`` would; with no witness in
+    NORMAL mode there is no dispatch.  Returns one GcResp per witness, in
+    order.
     """
     from ..kernels import gang_gc, np_keyhash2x32
 
-    assert witnesses, "gc_many needs at least one witness"
-    gang = witnesses[0].gang
-    assert all(w.gang is gang for w in witnesses), "witnesses must share a gang"
-    assert all(w.mode is WitnessMode.NORMAL for w in witnesses)
+    out = [GcResp(stale_requests=()) for _ in witnesses]
+    live = [i for i, w in enumerate(witnesses)
+            if w.mode is WitnessMode.NORMAL]
     uniq = list(dict.fromkeys((kh, rpc) for kh, rpc in entries))
-    if not uniq:
+    if not live or not uniq:
         # Pure aging round: Python gc ages survivors even with no entries.
-        return [w._apply_gc([], [], []) for w in witnesses]
+        for i in live:
+            out[i] = witnesses[i]._apply_gc([], [], [])
+        return out
+    gang = witnesses[live[0]].gang
+    assert all(witnesses[i].gang is gang for i in live), \
+        "witnesses must share a gang"
     hi, lo = _lanes([kh for kh, _rpc in uniq])
     qh, ql = np_keyhash2x32(hi, lo)
     rhi, rlo = _rpc_lanes([rpc for _kh, rpc in uniq])
-    E, L = len(uniq), len(witnesses)
-    g_qh = np.tile(qh, L)
-    g_ql = np.tile(ql, L)
-    g_rh = np.tile(rhi, L)
-    g_rl = np.tile(rlo, L)
-    g_lane = np.repeat(
-        np.fromiter((w.lane for w in witnesses), np.int32, L), E
-    )
+    E, L = len(uniq), len(live)
+    lanes = np.fromiter((witnesses[i].lane for i in live), np.int32, L)
     aged = np.zeros(gang.n_lanes, np.int32)
-    for w in witnesses:
-        aged[w.lane] = 1
+    aged[lanes] = 1
     cleared, table = gang_gc(
-        gang.table, gang.n_sets, g_qh, g_ql, g_rh, g_rl, g_lane, aged
+        gang.table, gang.n_sets, np.tile(qh, L), np.tile(ql, L),
+        np.tile(rhi, L), np.tile(rlo, L), np.repeat(lanes, E), aged,
     )
     gang.table = table
-    for w in witnesses:
-        w.stats["kernel_batches"] += 1
     keys = [(int(qh[e]), int(ql[e])) for e in range(E)]
     rpcs = [rpc for _kh, rpc in uniq]
-    return [
-        w._apply_gc(keys, rpcs, [bool(c) for c in cleared[i * E:(i + 1) * E]])
-        for i, w in enumerate(witnesses)
-    ]
+    for j, i in enumerate(live):
+        w = witnesses[i]
+        w.stats["kernel_batches"] += 1
+        out[i] = w._apply_gc(keys, rpcs,
+                             [bool(c) for c in cleared[j * E:(j + 1) * E]])
+    return out

@@ -40,8 +40,7 @@ from typing import Any, Dict, List, Optional, Sequence, Set
 import numpy as np
 import torch
 
-from .client import Decision
-from .master import DUP, ERROR, SYNCED
+from .master import ERROR
 from .telemetry import span
 from .types import Op, OpType, RecordStatus, WitnessMode
 
@@ -200,15 +199,8 @@ class FusedBatchDriver:
         if (cfg.master_id != g.master.master_id
                 or cfg.witness_list_version != g.master.witness_list_version):
             return False
-        from .device_witness import DeviceWitness
-
-        for w in g.witnesses:
-            if (not isinstance(w, DeviceWitness)
-                    or w.mode is not WitnessMode.NORMAL
-                    or w.gang is not self.cluster.gang
-                    or w.lane is None):
-                return False
-        return True
+        return all(w.mode is WitnessMode.NORMAL and w.lane is not None
+                   for w in g.witnesses)
 
     # -- the fused path -----------------------------------------------------
     def try_update_batch(self, session, ops: Sequence[Op],
@@ -236,7 +228,7 @@ class FusedBatchDriver:
         (shard_ids, touched, exec_pred, per_shard_appends), or None when
         the batch is declined."""
         cluster = self.cluster
-        if cluster.gang is None or not ops:
+        if not ops:
             return None
         for op in ops:
             if op.op_type not in _PLAIN_UPDATES or len(op.keys) != 1:
@@ -301,8 +293,6 @@ class FusedBatchDriver:
              per_shard_appends):
         from ..kernels import gang_fastpath_batch
 
-        from .local import OpOutcome
-
         cluster = self.cluster
         gang = cluster.gang
         with span("fused.kernel"):
@@ -346,7 +336,7 @@ class FusedBatchDriver:
             self.stats["fused_ops"] += len(ops)
 
         # Witness settle: fold each op's per-lane reason codes into mirror +
-        # stats + RecordStatus, exactly as DeviceWitness.record_batch does.
+        # stats + RecordStatus, as a witness's own record_batch does.
         with span("fused.settle"):
             witnesses = {sid: cluster.shards[sid].witnesses
                          for sid in touched}
@@ -363,11 +353,11 @@ class FusedBatchDriver:
                 ])
 
         # Master rounds in op order, the ring's conflict bit standing in for
-        # the host window lookup.
+        # the host window lookup; each op acknowledged by its shard.
         with span("fused.master"):
             acks = session.acks()
             need_drain: Set[int] = set()
-            outcomes: List[OpOutcome] = []
+            outcomes = []
             for b, op in enumerate(ops):
                 g = cluster.shards[shard_ids[b]]
                 cfg = cluster.config.fetch(g.shard_id)
@@ -381,31 +371,17 @@ class FusedBatchDriver:
                     raise RuntimeError(
                         f"fused master round failed: {result.error}"
                     )
-                decision, rtts, fast = g._classify(
-                    verdict, result, statuses_per_op[b]
-                )
-                if verdict == SYNCED or decision is Decision.NEED_SYNC:
+                outcome, must_drain = g.acknowledge(
+                    session, op, verdict, result, statuses_per_op[b])
+                if must_drain:
                     need_drain.add(g.shard_id)
-                session.mark_completed(op.rpc_id)
-                if verdict != DUP:   # dups re-externalize the original, once
-                    g.record(op, result.value, session.client_id)
-                outcomes.append(OpOutcome(
-                    value=result.value,
-                    rtts=rtts,
-                    fast_path=fast,
-                    synced_path=verdict == SYNCED,
-                    witness_accepts=sum(
-                        1 for s in statuses_per_op[b]
-                        if s is RecordStatus.ACCEPTED
-                    ),
-                ))
+                outcomes.append(outcome)
 
         # Ring bookkeeping + the batched sync/gc tail (one drain per shard).
         with span("fused.drain"):
             for sid in touched:
                 g = cluster.shards[sid]
                 self.ring.committed(sid, g.master, per_shard_appends[sid])
-                if sid in need_drain or (g.auto_sync and g.master.want_sync):
-                    g._drain_syncs()
+                g.drain_before_reply(sid in need_drain)
                 self.ring.advance(sid, g.master)
         return outcomes

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import random
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from .backup import Backup
@@ -65,7 +66,6 @@ from .txn import (
     resolve_txn,
 )
 from .types import ClusterConfig, ExecResult, Op, OpType, RecordStatus, keyhash
-from .witness import Witness
 
 _M32 = 0xFFFFFFFF
 
@@ -233,21 +233,29 @@ class ShardGroup:
         self.geometry = geometry
         assert witness_backend in ("python", "device"), witness_backend
         self.witness_backend = witness_backend
-        # Device witnesses stack their tables into one device-resident gang
-        # (repro_torch.core.device_witness.WitnessGang) on ``device``:
-        # cluster-provided when the group belongs to a ShardedCluster (all
-        # shards share one gang so a routed batch is ONE dispatch),
-        # group-local otherwise.
         self.device = device
-        self.gang = gang
-        if witness_backend == "device" and self.gang is None:
-            from .device_witness import WitnessGang
+        # The witness backend, chosen once: how a witness is made, and how
+        # the group's live witnesses record one op and gc one sync batch
+        # (one dispatch for all of them on the device backend, one call
+        # each on the Python one).  Device witnesses stack their tables
+        # into one device-resident gang on ``device``: cluster-provided
+        # when the group belongs to a ShardedCluster (all shards share one
+        # gang so a routed batch is ONE dispatch), group-local otherwise.
+        if witness_backend == "device":
+            from . import device_witness as backend
 
-            lanes = 1
-            while lanes < f:
-                lanes <<= 1
-            self.gang = WitnessGang(geometry.n_sets, geometry.n_ways, lanes,
-                                    device=device)
+            if gang is None:
+                gang = backend.WitnessGang(geometry.n_sets, geometry.n_ways,
+                                           f, device=device)
+            make = partial(backend.DeviceWitness, gang=gang)
+        else:
+            from . import witness as backend
+
+            make = backend.Witness
+        self.gang = gang
+        self._new_witness = partial(make, geometry.n_sets, geometry.n_ways)
+        self._record_many = backend.record_many
+        self._gc_many = backend.gc_many
         self.master = Master(
             alloc_id(), epoch=0, sync_batch=sync_batch,
             hot_key_window=hot_key_window,
@@ -274,17 +282,6 @@ class ShardGroup:
         self.slot_ops: Dict[int, int] = {}
         self.owned_filter: Optional[Callable[[Any], bool]] = None
         self.retired = False
-
-    def _new_witness(self):
-        """Build one witness at this group's geometry: the protocol-reference
-        Python witness, or the kernel-backed device witness (one CUDA
-        dispatch per record batch; see repro_torch.core.device_witness)."""
-        if self.witness_backend == "device":
-            from .device_witness import DeviceWitness
-
-            return DeviceWitness(self.geometry.n_sets, self.geometry.n_ways,
-                                 gang=self.gang)
-        return Witness(self.geometry.n_sets, self.geometry.n_ways)
 
     # ------------------------------------------------------------------ faults
     def witness_drop(self, witness_idx: int, dropped: bool = True) -> None:
@@ -317,16 +314,50 @@ class ShardGroup:
 
     @staticmethod
     def _classify(verdict: str, result: ExecResult,
-                  statuses: Sequence[RecordStatus]) -> Tuple[Decision, int, bool]:
+                  statuses: Sequence[RecordStatus]) -> Tuple[int, bool, bool]:
         """Fold (master verdict, witness statuses) into the client view:
-        (decision, rtts, fast).  Single source of truth for both the per-op
-        and batched paths' accounting."""
+        (rtts, fast, must_drain), ``must_drain`` when the reply waits on a
+        sync (a SYNCED verdict, or a client decision of NEED_SYNC)."""
         if verdict == SYNCED:
-            return Decision.COMPLETE, 2, False
+            return 2, False, True
         decision = decide(result, statuses)
         if decision is Decision.COMPLETE:
-            return decision, 1, verdict == FAST
-        return decision, 2, False
+            return 1, verdict == FAST, False
+        return 2, False, decision is Decision.NEED_SYNC
+
+    def acknowledge(self, session: ClientSession, op: Op, verdict: str,
+                    result: ExecResult, statuses: Sequence[RecordStatus]):
+        """The acknowledgement rule of one update, for every path that
+        applies one (``update``, ``update_batch``, the fused cluster batch):
+        classify the verdict, mark the rpc completed, record its history
+        entry unless the master answered ``DUP``, and build the outcome.
+        Returns (OpOutcome, must_drain): with ``must_drain`` the reply
+        waits until the shard has drained its syncs."""
+        from .local import OpOutcome
+
+        rtts, fast, must_drain = self._classify(verdict, result, statuses)
+        session.mark_completed(op.rpc_id)
+        if verdict != DUP:
+            # A RIFL-duplicate retry re-externalizes the ORIGINAL
+            # completion; the op already has its one history entry —
+            # recording again would demand two linearization points for
+            # one invocation.
+            self.record(op, result.value, session.client_id)
+        return OpOutcome(
+            value=result.value,
+            rtts=rtts,
+            fast_path=fast,
+            synced_path=verdict == SYNCED,
+            witness_accepts=sum(
+                1 for s in statuses if s is RecordStatus.ACCEPTED
+            ),
+        ), must_drain
+
+    def drain_before_reply(self, must_drain: bool) -> None:
+        """Drain the syncs a batch's replies wait on: those its
+        acknowledgements asked for, or the one ``auto_sync`` wants."""
+        if must_drain or (self.auto_sync and self.master.want_sync):
+            self._drain_syncs()
 
     def attempt_update(
         self, op: Op, acks: Tuple[Tuple[int, int], ...], now: float = 0.0,
@@ -339,65 +370,35 @@ class ShardGroup:
     def _record_witnesses(self, master_id: int,
                           op: Op) -> List[RecordStatus]:
         """One op's parallel witness records, statuses in witness order: the
-        live device witnesses sharing the group's gang record in ONE grouped
-        dispatch (``record_many``), any other live witness on its own; a
-        dropped witness rejects with no record (timeout == reject)."""
+        live witnesses record in one backend call (one grouped dispatch on
+        the device backend); a dropped witness rejects with no record
+        (timeout == reject)."""
         statuses = [RecordStatus.REJECTED] * len(self.witnesses)
         live = [i for i in range(len(self.witnesses))
                 if i not in self._dropped_witnesses]
-        if self.witness_backend == "device":
-            from .device_witness import DeviceWitness, record_many
-
-            grouped = [i for i in live
-                       if isinstance(self.witnesses[i], DeviceWitness)
-                       and self.witnesses[i].gang is self.gang]
-            if grouped:
-                with span("witness.record"):
-                    got = record_many([self.witnesses[i] for i in grouped],
-                                      master_id, op.key_hashes(), op.rpc_id,
-                                      op)
-                for i, st in zip(grouped, got):
-                    statuses[i] = st
-                live = [i for i in live if i not in grouped]
-        for i in live:
+        if live:
             with span("witness.record"):
-                statuses[i] = self.witnesses[i].record(
-                    master_id, op.key_hashes(), op.rpc_id, op)
+                got = self._record_many([self.witnesses[i] for i in live],
+                                        master_id, op.key_hashes(),
+                                        op.rpc_id, op)
+            for i, st in zip(live, got):
+                statuses[i] = st
         return statuses
 
     def update(self, session: ClientSession, op: Op, now: float = 0.0):
         """Full CURP update; returns an OpOutcome (see local.py)."""
-        from .local import OpOutcome
-
         with span("shard.update"):
             verdict, result, statuses = self.attempt_update(
                 op, session.acks(), now)
-            decision, rtts, fast = self._classify(verdict, result, statuses)
-
-            if verdict == SYNCED or decision is Decision.NEED_SYNC:
+            outcome, must_drain = self.acknowledge(session, op, verdict,
+                                                   result, statuses)
+            if must_drain:
                 # Conflict path / slow path: sync before the reply
                 # externalizes.
                 self._drain_syncs()
-
             if self.auto_sync and self.master.want_sync:
                 self._drain_syncs()
-
-            session.mark_completed(op.rpc_id)
-            if verdict != DUP:
-                # A RIFL-duplicate retry re-externalizes the ORIGINAL
-                # completion; the op already has its one history entry —
-                # recording again would demand two linearization points
-                # for one invocation.
-                self.record(op, result.value, session.client_id)
-            return OpOutcome(
-                value=result.value,
-                rtts=rtts,
-                fast_path=fast,
-                synced_path=verdict == SYNCED,
-                witness_accepts=sum(
-                    1 for s in statuses if s is RecordStatus.ACCEPTED
-                ),
-            )
+            return outcome
 
     def update_batch(self, session: ClientSession, ops: Sequence[Op],
                      now: float = 0.0) -> List["OpOutcome"]:
@@ -411,8 +412,6 @@ class ShardGroup:
         (that's the batching window); any op that needs a sync is drained
         once before the batch returns, so nothing is externalized early.
         """
-        from .local import OpOutcome
-
         results = [self._master_round(op, session.acks(), now) for op in ops]
         cfg = self.config.fetch(self.shard_id)
         per_witness: List[List[RecordStatus]] = []
@@ -422,28 +421,15 @@ class ShardGroup:
             else:
                 per_witness.append(w.record_batch(cfg.master_id, list(ops)))
 
-        outcomes: List[OpOutcome] = []
+        outcomes = []
         need_drain = False
         for j, op in enumerate(ops):
             verdict, result, _cfg = results[j]
-            statuses = [pw[j] for pw in per_witness]
-            decision, rtts, fast = self._classify(verdict, result, statuses)
-            if verdict == SYNCED or decision is Decision.NEED_SYNC:
-                need_drain = True
-            session.mark_completed(op.rpc_id)
-            if verdict != DUP:   # see update(): dups re-externalize, once
-                self.record(op, result.value, session.client_id)
-            outcomes.append(OpOutcome(
-                value=result.value,
-                rtts=rtts,
-                fast_path=fast,
-                synced_path=verdict == SYNCED,
-                witness_accepts=sum(
-                    1 for s in statuses if s is RecordStatus.ACCEPTED
-                ),
-            ))
-        if need_drain or (self.auto_sync and self.master.want_sync):
-            self._drain_syncs()
+            outcome, must_drain = self.acknowledge(
+                session, op, verdict, result, [pw[j] for pw in per_witness])
+            outcomes.append(outcome)
+            need_drain = need_drain or must_drain
+        self.drain_before_reply(need_drain)
         return outcomes
 
     def read(self, session: ClientSession, op: Op, now: float = 0.0):
@@ -508,8 +494,8 @@ class ShardGroup:
                 else None,
             )
         statuses = self._record_witnesses(cfg.master_id, op)
-        decision, rtts, fast = self._classify(verdict, result, statuses)
-        if verdict == SYNCED or decision is Decision.NEED_SYNC:
+        rtts, fast, must_drain = self._classify(verdict, result, statuses)
+        if must_drain:
             # Slow path: the intent reaches the backups before the vote is
             # externalized, so the prepare is durable either way.
             self._drain_syncs()
@@ -563,34 +549,15 @@ class ShardGroup:
                     gc_entries = self.master.complete_sync()
                     live = [w for i, w in enumerate(self.witnesses)
                             if i not in self._dropped_witnesses]
-                    for resp in self._gc_witnesses(live, gc_entries):
+                    with span("witness.gc_round"):
+                        resps = self._gc_many(live, gc_entries)
+                    for resp in resps:
                         # §4.5: retry suspected uncollected garbage through
                         # RIFL.
                         for op in resp.stale_requests:
                             cfg = self.config.fetch(self.shard_id)
                             self.master.handle_update(
                                 op, cfg.witness_list_version, (), 0.0)
-
-    def _gc_witnesses(self, witnesses, gc_entries):
-        """One sync round's witness gc: device witnesses sharing a gang
-        clear + age in ONE stacked dispatch (lane-expanded entries); any
-        remaining witness gc's individually.  Responses in witness order."""
-        with span("witness.gc_round"):
-            if self.witness_backend == "device" and len(witnesses) > 1:
-                from .device_witness import DeviceWitness, gc_many
-                from .types import WitnessMode
-
-                gang = self.gang
-                stacked = [w for w in witnesses
-                           if isinstance(w, DeviceWitness)
-                           and w.mode is WitnessMode.NORMAL
-                           and w.gang is gang]
-                if len(stacked) > 1:
-                    resp = dict(zip((id(w) for w in stacked),
-                                    gc_many(stacked, gc_entries)))
-                    return [resp[id(w)] if id(w) in resp
-                            else w.gc(gc_entries) for w in witnesses]
-            return [w.gc(gc_entries) for w in witnesses]
 
     def sync_now(self) -> None:
         self.master.want_sync = True
@@ -876,11 +843,8 @@ class ShardedCluster:
         if witness_backend == "device":
             from .device_witness import WitnessGang
 
-            lanes = 1
-            while lanes < n_shards * f:
-                lanes <<= 1
-            self.gang = WitnessGang(geometry.n_sets, geometry.n_ways, lanes,
-                                    device=device)
+            self.gang = WitnessGang(geometry.n_sets, geometry.n_ways,
+                                    n_shards * f, device=device)
         # Kept for add_shard: a grown shard is built like the seed shards.
         self._group_kwargs = dict(
             f=f, sync_batch=sync_batch, hot_key_window=hot_key_window,

@@ -13,7 +13,7 @@ semantics through their plain PyTorch versions in repro_torch/kernels/ref.py).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from .merge import CLS_OTHER, conflicts
 from .telemetry import get_registry
@@ -289,3 +289,18 @@ class Witness:
     @property
     def occupancy(self) -> int:
         return sum(1 for ways in self._slots for s in ways if s.occupied)
+
+
+def record_many(witnesses: Sequence[Witness], master_id: int,
+                key_hashes: Tuple[int, ...], rpc_id: RpcId,
+                request: Op) -> List[RecordStatus]:
+    """One op's record at each of ``witnesses``, in order: a ``record`` call
+    each (the device backend's counterpart is one dispatch for all)."""
+    return [w.record(master_id, key_hashes, rpc_id, request)
+            for w in witnesses]
+
+
+def gc_many(witnesses: Sequence[Witness],
+            entries: Tuple[Tuple[int, RpcId], ...]) -> List[GcResp]:
+    """One sync batch's gc at each of ``witnesses``, in order."""
+    return [w.gc(entries) for w in witnesses]

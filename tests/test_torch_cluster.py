@@ -9,6 +9,7 @@ own counter) per eligible cross-shard batch.  Each side builds its ops from
 its own client sessions; only plain values cross between the packages.
 """
 import random
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -16,10 +17,11 @@ import torch
 
 import repro.core as jcore
 import repro_torch.core as tcore
+import repro_torch.core.shard as tshard
+import repro_torch.kernels as tkernels
 from repro_torch.core import DeviceWitness, ShardedCluster
 from repro_torch.core.client import ClientSession
 from repro_torch.core.device_witness import WitnessGang, gc_many, record_many
-from repro_torch.core.telemetry import registry
 from repro_torch.core.txn import prepare_op
 from repro_torch.core.types import RecordStatus
 from repro_torch.kernels import dispatch_count, reset_dispatch_count
@@ -379,17 +381,17 @@ def test_record_many_matches_sequential_records(seed):
     assert many[1].stats["rejects_mode"] > many[0].stats["rejects_mode"]
 
 
-def _grouped_records():
-    return registry().counter("witness.grouped_records").value
+def _kernel_batches(witnesses):
+    return sum(w.stats.get("kernel_batches", 0) for w in witnesses)
 
 
 @pytest.mark.parametrize("backend, dropped, grouped", [
     ("device", (), 3), ("device", (1,), 2), ("python", (), 0)])
 def test_lone_update_is_one_grouped_record(backend, dropped, grouped):
     """A lone update that runs no sync costs ONE grouped-record dispatch
-    on the device backend and counts one grouped record a live witness; a
-    dropped witness rejects unrecorded; the Python backend records one
-    witness at a time."""
+    on the device backend, in which each live witness counts one kernel
+    batch; a dropped witness rejects unrecorded; the Python backend
+    records one witness at a time, with no dispatch."""
     c = ShardedCluster(n_shards=2, f=3, witness_backend=backend, seed=7,
                        sync_batch=1000, geometry=tcore.WitnessGeometry(64, 4),
                        device="cpu")
@@ -400,7 +402,7 @@ def test_lone_update_is_one_grouped_record(backend, dropped, grouped):
     for i in dropped:
         group.witness_drop(i)
     sub = s.session_for(group.shard_id)
-    before = _grouped_records()
+    before = _kernel_batches(group.witnesses)
     reset_dispatch_count()
     if dropped:     # a reject needs a sync before the reply: attempt only
         _verdict, _result, statuses = group.attempt_update(op, sub.acks())
@@ -410,7 +412,7 @@ def test_lone_update_is_one_grouped_record(backend, dropped, grouped):
         out = group.update(sub, op)
         assert out.fast_path and out.witness_accepts == 3
     assert dispatch_count() == (1 if backend == "device" else 0)
-    assert _grouped_records() - before == grouped
+    assert _kernel_batches(group.witnesses) - before == grouped
 
 
 def test_txn_prepare_leg_is_one_grouped_record():
@@ -422,13 +424,133 @@ def test_txn_prepare_leg_is_one_grouped_record():
     spec = s.txn_spec([(k, 1) for k in keys])
     part = spec.parts[0]
     group = c.shards[part.shard_id]
-    before = _grouped_records()
+    before = _kernel_batches(group.witnesses)
     reset_dispatch_count()
     vote = group.txn_prepare(s.session_for(part.shard_id),
                              prepare_op(spec, part))
-    assert vote.granted and vote.fast
+    assert vote.granted and vote.fast and vote.rtts == 1
     assert dispatch_count() == 1
-    assert _grouped_records() - before == 3
+    assert _kernel_batches(group.witnesses) - before == 3
+
+
+def _ack_rounds(s):
+    """Two rounds of one client's updates.  Round 1: an update of k1, one
+    of k2, and one of k1 again, which the master answers SYNCED and the
+    witnesses reject (k1 is held).  Round 2, after the syncs: a RIFL retry
+    of the first update (DUP at the master; the witnesses, gc'd, record it
+    afresh), then an update of k1 that the master takes as fast and the
+    witnesses, holding the retry, reject."""
+    first = s.op_set("k1", "1")
+    return [[first, s.op_set("k2", "2"), s.op_set("k1", "3")],
+            [first, s.op_set("k1", "4")]]
+
+
+# (value, rtts, fast_path, synced_path, witness_accepts) of each update.
+_ACK_OUTCOMES = [[("OK", 1, True, False, 3), ("OK", 1, True, False, 3),
+                  ("OK", 2, False, True, 0)],
+                 [(None, 1, False, False, 3), ("OK", 2, False, False, 0)]]
+
+
+@pytest.mark.parametrize("path", ["update", "declined_batch", "fused_batch"])
+def test_acknowledgement_rule_is_the_same_on_every_path(path, monkeypatch):
+    """One acknowledgement rule: a stream holding a RIFL retry, a SYNCED
+    verdict and witness rejects gives the same outcomes through ``update``,
+    through an ``update_batch`` the fused driver declines and through a
+    fused batch, and one history entry an invocation (the retry adds
+    none)."""
+    c, s = _port()
+    if path == "declined_batch":
+        monkeypatch.setattr(c._fused, "_eligible_group", lambda sid: False)
+    rounds = _ack_rounds(s)
+    got = []
+    for ops in rounds:
+        if path == "update":
+            outs = [c.update(s, op) for op in ops]
+        else:
+            outs = c.update_batch(s, ops)
+        got.append([_outcome(o) for o in outs])
+    assert got == _ACK_OUTCOMES
+    fused = c._fused.stats
+    assert (fused["fused_batches"], fused["declined"]) == {
+        "update": (0, 0), "declined_batch": (0, 2),
+        "fused_batch": (2, 0)}[path]
+    invocations = {op.rpc_id for ops in rounds for op in ops}
+    assert Counter(e["op"].rpc_id for e in c.history) == \
+        Counter(invocations)
+
+
+def _count_calls(monkeypatch, calls, *names):
+    """Replace ``repro_torch.kernels.<name>`` for each name, as the
+    benchmark does, by a wrapper that counts its calls into ``calls``."""
+    for name in names:
+        real = getattr(tkernels, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(tkernels, name, counted)
+
+
+@pytest.mark.parametrize("decline", ["retry", "dropped"])
+def test_declined_batch_is_one_record_dispatch_a_live_witness(monkeypatch,
+                                                              decline):
+    """A batch the fused driver declines (an in-batch retry of one rpc, or
+    a dropped witness) takes the per-shard path: one ``gang_record``
+    dispatch for each live witness of each shard it touches, and no
+    grouped or fused record."""
+    c, s = _port()
+    ops = [s.op_set(f"d{i}", "v") for i in range(12)]
+    touched = sorted({c.shard_of(op.keys[0]) for op in ops})
+    assert len(touched) > 1
+    if decline == "retry":
+        ops.append(ops[0])
+    else:
+        c.shards[touched[0]].witness_drop(1)
+    calls = Counter()
+    _count_calls(monkeypatch, calls, "gang_record", "gang_record_groups",
+                 "gang_fastpath_batch")
+    outs = c.update_batch(s, ops)
+    assert c._fused.stats["declined"] == 1
+    live = 3 * len(touched) - (decline == "dropped")
+    assert calls == {"gang_record": live}
+    assert sum(o.witness_accepts for o in outs) == \
+        3 * len(ops) - (decline == "dropped") * sum(
+            c.shard_of(op.keys[0]) == touched[0] for op in ops)
+
+
+@pytest.mark.parametrize("path", ["lone", "txn_prepare", "fused"])
+def test_benchmark_hooks_are_read_at_call_time(monkeypatch, path):
+    """The benchmark counts bytes by replacing
+    ``repro_torch.kernels.gang_record_groups`` / ``gang_fastpath_batch``,
+    and its KV control replaces ``repro_torch.core.shard.decide``, after
+    the cluster is built: a lone update, a txn prepare leg and a fused
+    batch each reach the replacements."""
+    c, s = _port()
+    calls = Counter()
+    _count_calls(monkeypatch, calls, "gang_record_groups",
+                 "gang_fastpath_batch")
+    decide = tshard.decide
+
+    def counted_decide(result, statuses):
+        calls["decide"] += 1
+        return decide(result, statuses)
+    monkeypatch.setattr(tshard, "decide", counted_decide)
+    if path == "lone":
+        assert c.update(s, s.op_set("h", "v")).fast_path
+        want = {"gang_record_groups": 1, "decide": 1}
+    elif path == "txn_prepare":
+        spec = s.txn_spec([(f"t{i}", 1) for i in range(16)])
+        part = spec.parts[0]
+        vote = c.shards[part.shard_id].txn_prepare(
+            s.session_for(part.shard_id), prepare_op(spec, part))
+        assert vote.granted and vote.fast
+        want = {"gang_record_groups": 1, "decide": 1}
+    else:
+        outs = c.update_batch(s, [s.op_set(f"f{i}", "v") for i in range(8)])
+        assert all(o.fast_path for o in outs)
+        assert c._fused.stats["fused_batches"] == 1
+        want = {"gang_fastpath_batch": 1, "decide": 8}
+    assert calls == want
 
 
 def test_record_keys_rollback_leaves_table_unchanged_on_reject():

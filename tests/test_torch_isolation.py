@@ -46,6 +46,17 @@ def test_source_has_no_jax_or_repro_import(path):
     assert not hits, f"{path} imports {hits}"
 
 
+@pytest.mark.parametrize("name", ["shard.py", "fastbatch.py"])
+def test_write_path_leaves_witness_launches_to_the_witness_modules(name):
+    """ShardGroup and the fused driver do not decide which witnesses share
+    a kernel call: neither tests a witness's type or compares gangs, and
+    only ShardGroup's choice of backend names the device witness."""
+    text = (PORT / "core" / name).read_text()
+    assert not re.search(r"isinstance\([^)]*Witness", text)
+    assert ".gang is" not in text
+    assert text.count("DeviceWitness") == (name == "shard.py")
+
+
 BENCH_CODE = sorted(p.relative_to(ROOT) for d in ("entries", "reference")
                     for p in (ROOT / "perfbench" / d).glob("*.py"))
 
