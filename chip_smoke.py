@@ -198,7 +198,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    update (``csrc/ssm_update.cu``) runs inside hymba-1.5b's replays, where
    the host counts no launch: its launches in the kernels' line are the
    drivers' ``ssm.fused_updates`` over this phase, the Mamba2 layers each
-   replay updated.
+   replay updated; so are the decode attention's (``csrc/decode_attn.cu``,
+   one launch an attention layer): the drivers' ``attn.fused_decodes``.
 
 7b. The Mamba2 state update (after phase 7): ``ssm_state_update_cuda``
    and ``ssm_state_update_plain`` on the same card tensors at hymba-1.5b's
@@ -209,6 +210,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    states it); both timed (CUDA events, state restored between calls), the
    kernel's device time, and its bound: one read and one write of the
    state at HBM_BYTES_PER_S.  Its kernels' row is hymba's layer.
+
+7c. The decode attention (after 7b): ``decode_attention_cuda`` and
+   ``sdpa_decode_plain`` on the same card tensors at each layer of
+   ATTN_CASES in bf16: hymba-1.5b's global ring (8 x 16384 x 5 x 64, rep
+   5) with rows at the cell's ~1,700 tokens and with every ring full, its
+   window ring full (1024), and granite-4.0-h-small's (16 x 8192 x 8 x
+   128, rep 4) at the cell's ~600 tokens and full; the slots a row does
+   not hold are filled with large values the mask must keep out.  o within
+   ``parity.decode_attention_bound`` (the summation order's bound, as the
+   gpu test states it) and ``parity.DECODE_ATTENTION_AGREEMENT`` (the
+   share of elements bit-equal and the rms gap, which a kernel one slot
+   short or rounding p elsewhere fails); both timed (CUDA events), the kernel's device
+   time, and its bound: the live K and V rows (and q and o) at
+   HBM_BYTES_PER_S.  Its kernels' row is hymba's global ring at ~1,700.
 
 8. Training (run last; launches counted from 0 over this phase alone,
    and it must launch none of the port's kernels: the model is plain
@@ -325,6 +340,16 @@ BF16_LOGIT_TOL, F32_LOGIT_TOL = 0.25, 1e-3
 # served with, phase 7's hymba-1.5b first (its kernels' row), then
 # granite-4.0-h-small at its cell's 16.
 SSM_SHAPES = (("hymba-1.5b", SERVE_BATCH), ("granite-4.0-h-small", 16))
+# The decode attention (phase 7c): (case, arch, rows, ring, tokens a row
+# holds, None for every ring full), hymba-1.5b's global ring at its cell's
+# length first (its kernels' row).
+ATTN_CASES = (
+    ("hymba global ~1700", "hymba-1.5b", SERVE_BATCH, 16384, 1700),
+    ("hymba global full", "hymba-1.5b", SERVE_BATCH, 16384, None),
+    ("hymba window full", "hymba-1.5b", SERVE_BATCH, 1024, None),
+    ("granite ~600", "granite-4.0-h-small", 16, 8192, 600),
+    ("granite full", "granite-4.0-h-small", 16, 8192, None),
+)
 # Training (phase 8): CURP-FT at smollm-360m's published width and depth
 # (bf16 weights, remat, f32 moments), train_4k's sequence of 4096 in a
 # micro-batch of 2, f = 3 witnesses and backups, a sync every 5 steps; the
@@ -2520,11 +2545,13 @@ def phase_serving(np, torch, card, device):
     kops.reset_launch_counts()
     fused = get_registry().counter("ssm.fused_updates")
     fused.reset()
+    attended = get_registry().counter("attn.fused_decodes")
+    attended.reset()
     info = {}
     t_phase = time.perf_counter()
     for name in SERVE_ARCHS:
         cfg = serve_arch(name)
-        fused_before = fused.value
+        fused_before, attended_before = fused.value, attended.value
         t0 = time.perf_counter()
         model = Transformer(cfg, device=device, seed=SEED)
         torch.cuda.synchronize()
@@ -2628,6 +2655,11 @@ def phase_serving(np, torch, card, device):
         check((row["ssm_fused_updates"] > 0) == bool(cfg.ssm),
               f"{name}: {row['ssm_fused_updates']} Mamba2 state updates "
               f"in its replays")
+        row["attn_fused_decodes"] = attended.value - attended_before
+        check(row["attn_fused_decodes"] > 0
+              and row["attn_fused_decodes"] % cfg.n_layers == 0,
+              f"{name}: {row['attn_fused_decodes']} decode attentions in "
+              f"its replays, not one for each of its {cfg.n_layers} layers")
         info[name] = row
         del a, model
         torch.cuda.empty_cache()
@@ -2635,12 +2667,14 @@ def phase_serving(np, torch, card, device):
     path = ("gang_record", "gang_fastpath", "gang_gc", "gang_record_groups")
     check(all(launched[k] > 0 for k in path),
           f"serving did not launch every gang kernel: {launched}")
-    # The host counts ssm_update.cu once a capture; its launches are the
-    # replays' state updates.
+    # The host counts ssm_update.cu and decode_attn.cu once a capture;
+    # their launches are the replays' state updates and attentions.
     launched[kops.SSM_UPDATE.name] = fused.value
+    launched[kops.DECODE_ATTN.name] = attended.value
     say(card, "serving launches (phase 7 alone): "
               + ", ".join(f"{k} {launched[k]}"
-                          for k in path + (kops.SSM_UPDATE.name,))
+                          for k in path + (kops.SSM_UPDATE.name,
+                                           kops.DECODE_ATTN.name))
               + f"; phase 7 took {time.perf_counter() - t_phase:.1f} s")
     return launched, info
 
@@ -2781,6 +2815,80 @@ def phase_ssm_update(np, torch, card, device):
                      f"{t['device_ms']:.4f} ms")
                   + f", bound {t['bound'][0]:.6f} ms ({nbytes:,} B "
                     f"read and written)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7c: the decode attention against its plain version
+# ---------------------------------------------------------------------------
+def phase_decode_attention(np, torch, card, device):
+    """``decode_attn.cu`` against ``sdpa_decode_plain`` on the same card
+    tensors at each of ATTN_CASES: o within its summation order's bound;
+    both timed, the kernel's device time and its bound.  Returns its
+    numbers by case."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops as kops, parity
+    from repro_torch.models.layers import attn_scale, sdpa_decode_plain
+
+    out = {}
+    for case, arch, B, C, tokens in ATTN_CASES:
+        cfg = ARCHS[arch]
+        Hkv, dh = cfg.n_kv_heads, cfg.d_head
+        rep = cfg.n_heads // Hkv
+        scale = attn_scale(cfg, dh)
+        rows = np.arange(B)
+        # a row holds tokens + 1 slots after this one's write; rows part
+        # by a few tokens, as sessions with other prompts do
+        pos = (C + 5 * rows) if tokens is None else (tokens - 7 * rows)
+        q, k, v, cur_pos = parity.decode_attention_case(
+            B, C, Hkv, rep, dh, torch.bfloat16, device, pos.tolist(), scale,
+            seed=SEED + 31)
+        got = kops.decode_attention_cuda(q, k, v, cur_pos, scale)
+        want = sdpa_decode_plain(cfg, q, k, v, cur_pos)
+        torch.cuda.synchronize()
+        tol = parity.decode_attention_bound(q, k, v, cur_pos, scale, want)
+        gap = (got.float() - want.float()).abs()
+        check(bool((gap <= tol).all()),
+              f"decode_attention at {case}: o differs from the plain "
+              f"version's by {float(gap.max()):.6g}, past its summation "
+              f"order's bound ({float((gap / tol).max()):.3f} of it)")
+        equal, rms = parity.decode_attention_agreement(got, want)
+        least, most = parity.DECODE_ATTENTION_AGREEMENT[torch.bfloat16]
+        check(equal >= least and rms <= most,
+              f"decode_attention at {case}: {equal:.4f} of o's elements "
+              f"equal to the plain version's (at least {least}), rms gap "
+              f"{rms:.3f} u (at most {most})")
+        live = int(parity.live_slots(cur_pos, C).sum())
+        nbytes = (2 * live * Hkv * dh + 2 * q.numel()) * k.element_size()
+
+        def kernel():
+            kops.decode_attention_cuda(q, k, v, cur_pos, scale)
+
+        def plain():
+            sdpa_decode_plain(cfg, q, k, v, cur_pos)
+
+        t = dict(shape=(B, C, Hkv, dh), rep=rep, live_slots=live,
+                 max_abs_err=float(gap.max()),
+                 tol_share=float((gap / tol).max()),
+                 equal_share=equal, rms_gap_u=rms,
+                 ms=_event_ms(torch, kernel, lambda: None, 50),
+                 plain_ms=_event_ms(torch, plain, lambda: None, 5),
+                 bytes=nbytes, bound=_bound_ms(nbytes, 0),
+                 device_ms=_device_ms(torch, kernel, only="decode_attn"))
+        out[case] = t
+        del q, k, v, got, want, tol, gap
+        torch.cuda.empty_cache()
+        say(card, f"decode_attention at {case} ({B} x {C} x {Hkv} x {dh} "
+                  f"bf16, rep {rep}, {live:,} live slots): o max abs diff "
+                  f"{t['max_abs_err']:.6g} ({t['tol_share']:.3f} of its "
+                  f"bound, {equal:.4f} of elements equal, rms gap "
+                  f"{rms:.3f} u); "
+                  f"{t['ms']:.4f} ms (CUDA events; plain "
+                  f"{t['plain_ms']:.4f}), device "
+                  + ("not measured" if t["device_ms"] is None else
+                     f"{t['device_ms']:.4f} ms")
+                  + f", bound {t['bound'][0]:.6f} ms ({nbytes:,} B of live "
+                    f"K, V, q and o)")
     return out
 
 
@@ -3598,6 +3706,8 @@ def main() -> int:
     serve_launches, serve_info = run("serving", phase_serving, np, torch,
                                      card, "cuda")
     ssm_info = run("ssm update", phase_ssm_update, np, torch, card, "cuda")
+    attn_info = run("decode attention", phase_decode_attention, np, torch,
+                    card, "cuda")
     train_info = run("training", phase_training, np, torch, card, "cuda")
     shard_info = run("sharded", phase_sharded, np, torch, card, "cuda")
     say(card, "wall s by phase: " + ", ".join(
@@ -3610,6 +3720,12 @@ def main() -> int:
     launches[ssm] = serve_launches[ssm]
     times[ssm] = ssm_info[SSM_SHAPES[0][0]]
     errs[ssm] = max(t["max_abs_err"] for t in ssm_info.values())
+    # The decode attention: phase 7's launches, phase 7c's numbers at
+    # hymba-1.5b's global ring at its cell's length.
+    attn = kops.DECODE_ATTN.name
+    launches[attn] = serve_launches[attn]
+    times[attn] = attn_info[ATTN_CASES[0][0]]
+    errs[attn] = max(t["max_abs_err"] for t in attn_info.values())
     kernels = []
     for k in kops.KERNELS:
         t = times[k.name]
@@ -3624,7 +3740,7 @@ def main() -> int:
         card=card, kernels=kernels, slice=slice_info, table_path=table_info,
         txn=txn_info, txn_launches=txn_launches, times=times, idle=idle,
         serving=serve_info, serving_launches=serve_launches,
-        ssm_update=ssm_info,
+        ssm_update=ssm_info, decode_attention=attn_info,
         training=train_info, sharded=shard_info,
         wall_s=wall,
         ptxas=build.ptxas_reports()), indent=1, default=str))

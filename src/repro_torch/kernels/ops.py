@@ -6,7 +6,10 @@ Counterpart of ``src/repro/kernels/ops.py``.  The gang ops:
 ops: ``keyhash2x32`` and ``shard_route`` (K1), ``witness_record`` (K6),
 ``fastpath_batch`` (K7) and ``conflict_scan`` (K8), and the transaction
 and baseline ops of one table: ``txn_probe`` (K9, on K1's mix),
-``witness_gc`` (K10) and ``witness_record_seq`` (K11).  Signatures, result
+``witness_gc`` (K10) and ``witness_record_seq`` (K11).  Beside them, two
+kernels of the decode step that the JAX package leaves to XLA: the Mamba2
+state update (``ssm_state_update_cuda``) and one layer's decode attention
+(``decode_attention_cuda``).  Signatures, result
 tuples and reason codes are the JAX package's, without its TPU-only options
 (``interpret``, ``tile_sets``, ``block*``).
 
@@ -32,6 +35,7 @@ registry, as the JAX package counts jitted-program launches.  Each
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Dict, NamedTuple, Optional
@@ -130,10 +134,16 @@ SSM_UPDATE = CudaKernel(
     {"ssm_update_launch": [I] * 6 + [P] * 2 + [L] * 2 + [P] + [L] * 3
      + [P] + [L] * 3 + [P] + [L] * 3 + [P, L, P, P]})
 
+DECODE_ATTN = CudaKernel(
+    "decode_attention", _CSRC + "decode_attn.cu",
+    "none: src/repro/models/layers.py attention_decode is plain jnp",
+    {"decode_attn_launch": [I] * 6 + [ctypes.c_float] + [P] * 6})
+
 GANG_KERNELS = (GANG_RECORD, GANG_FASTPATH, GANG_GC, GANG_GROUPS)
 TABLE_KERNELS = (KEYHASH, WITNESS_RECORD, FASTPATH_RECORD_SCAN, CONFLICT_SCAN)
 TXN_KERNELS = (TXN_PROBE, WITNESS_GC, WITNESS_RECORD_SEQ)
-KERNELS = GANG_KERNELS + TABLE_KERNELS + TXN_KERNELS + (SSM_UPDATE,)
+KERNELS = (GANG_KERNELS + TABLE_KERNELS + TXN_KERNELS
+           + (SSM_UPDATE, DECODE_ATTN))
 
 
 def launch_counts() -> Dict[str, int]:
@@ -481,9 +491,10 @@ def witness_record_seq_cuda(table: WitnessTable, q_hi, q_lo) -> torch.Tensor:
     return accepted
 
 
-# The state sizes and types ssm_update.cu is instantiated for.
+# The state sizes ssm_update.cu is instantiated for, and the float types of
+# both model kernels (ssm_update.cu, decode_attn.cu).
 SSM_STATE_SIZES = (16, 128)
-_SSM_TYPES = (torch.bfloat16, torch.float32)
+_FLOAT_TYPES = (torch.bfloat16, torch.float32)
 
 
 def ssm_state_update_cuda(state: torch.Tensor, dA: torch.Tensor,
@@ -506,11 +517,11 @@ def ssm_state_update_cuda(state: torch.Tensor, dA: torch.Tensor,
     if N not in SSM_STATE_SIZES:
         raise ValueError(f"ssm_state_update is built for state sizes "
                          f"{SSM_STATE_SIZES}, got N = {N}")
-    if state.dtype not in _SSM_TYPES or any(
+    if state.dtype not in _FLOAT_TYPES or any(
             t.dtype != state.dtype for t in (dA, xdt, Bm, Cm)) \
             or active.dtype != torch.int32:
         raise ValueError(
-            f"ssm_state_update takes one float type of {_SSM_TYPES} and an "
+            f"ssm_state_update takes one float type of {_FLOAT_TYPES} and an "
             f"int32 active mask, got state {state.dtype}, dA {dA.dtype}, "
             f"xdt {xdt.dtype}, B {Bm.dtype}, C {Cm.dtype}, active "
             f"{active.dtype}")
@@ -541,6 +552,89 @@ def ssm_state_update_cuda(state: torch.Tensor, dA: torch.Tensor,
                     _ptr(y), _stream(dev))
     SSM_UPDATE.launches += 1
     return y
+
+
+# The head sizes decode_attn.cu is instantiated for (64 and 128 served, 16
+# the reduced configs), and the most query heads one KV head may serve
+# (nemotron-4-340b, dh 192 at 12 a KV head, is outside both).
+DECODE_HEAD_DIMS = (16, 64, 128)
+DECODE_MAX_REP = 8
+
+
+def decode_attention_cuda(q: torch.Tensor, kc: torch.Tensor,
+                          vc: torch.Tensor, cur_pos: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """One layer's single-token attention on the card, one launch of
+    ``decode_attn.cu``: ``q`` [B, 1, Hq, dh] against each row's live slots
+    of the ring ``kc``/``vc`` [B, C, Hkv, dh] (the first ``cur_pos[b] + 1``,
+    or all C once ``cur_pos[b] >= C``), read in place; returns o [B, 1, Hq,
+    dh].  See ``models.layers.sdpa_decode_plain`` for the contract.  The
+    cache is contiguous, q and the cache share one float type (bf16 or
+    f32), ``cur_pos`` is int32, Hkv divides Hq at most ``DECODE_MAX_REP``
+    times and dh is one of ``DECODE_HEAD_DIMS``.  Anything else, or a
+    tensor off the card, raises."""
+    if q.dim() != 4 or kc.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"decode_attention takes q [B, 1, Hq, dh] and a "
+                         f"[B, C, Hkv, dh] cache, got {tuple(q.shape)} and "
+                         f"{tuple(kc.shape)}")
+    B, C, Hkv, dh = kc.shape
+    Hq = q.shape[2]
+    if (tuple(vc.shape) != tuple(kc.shape) or q.shape[0] != B
+            or q.shape[3] != dh or tuple(cur_pos.shape) != (B,)
+            or C == 0 or Hkv == 0 or Hq % Hkv):
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(kc.shape)}, v {tuple(vc.shape)}, cur_pos "
+                         f"{tuple(cur_pos.shape)} do not fit one layer")
+    rep = Hq // Hkv
+    if dh not in DECODE_HEAD_DIMS:
+        raise ValueError(f"decode_attention is built for head sizes "
+                         f"{DECODE_HEAD_DIMS}, got dh = {dh}")
+    if not 1 <= rep <= DECODE_MAX_REP:
+        raise ValueError(f"decode_attention serves 1 to {DECODE_MAX_REP} "
+                         f"query heads a KV head, got {Hq} over {Hkv}")
+    if kc.dtype not in _FLOAT_TYPES or q.dtype != kc.dtype \
+            or vc.dtype != kc.dtype or cur_pos.dtype != torch.int32:
+        raise ValueError(
+            f"decode_attention takes one float type of {_FLOAT_TYPES} and "
+            f"int32 positions, got q {q.dtype}, k {kc.dtype}, v {vc.dtype}, "
+            f"cur_pos {cur_pos.dtype}")
+    if not (kc.is_contiguous() and vc.is_contiguous()) \
+            or kc.data_ptr() % 16 or vc.data_ptr() % 16:
+        raise ValueError("decode_attention takes a contiguous cache on "
+                         "16-byte boundaries")
+    dev = kc.device
+    if dev.type != "cuda" or any(t.device != dev for t in (q, vc, cur_pos)):
+        raise ValueError(f"decode_attention runs on one CUDA device, got "
+                         f"the cache on {dev}, q on {q.device}")
+    o = torch.empty((B, 1, Hq, dh), dtype=q.dtype, device=dev)
+    if B == 0:
+        return o
+    q, cur_pos = q.contiguous(), cur_pos.contiguous()
+    DECODE_ATTN.call("decode_attn_launch", int(kc.dtype == torch.bfloat16),
+                     dh, B, C, Hkv, rep, scale, _ptr(q), _ptr(kc), _ptr(vc),
+                     _ptr(cur_pos), _ptr(o), _stream(dev))
+    DECODE_ATTN.launches += 1
+    return o
+
+
+# The decode step's kernels by the serving counter that counts them.  A
+# CUDA graph's replays launch them without the host, so the driver counts
+# what the captured step launched, at every replay.
+STEP_KERNELS = {"ssm.fused_updates": SSM_UPDATE,
+                "attn.fused_decodes": DECODE_ATTN}
+
+
+@contextlib.contextmanager
+def step_launches():
+    """Counts the launches of ``STEP_KERNELS`` made inside the block:
+    yields a dict that holds them by counter name once the block ends."""
+    before = {name: k.launches for name, k in STEP_KERNELS.items()}
+    made: Dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        made.update((name, STEP_KERNELS[name].launches - n)
+                    for name, n in before.items())
 
 
 # ---------------------------------------------------------------------------
@@ -1183,5 +1277,7 @@ __all__ = [
     "witness_record_seq", "dispatch_count", "reset_dispatch_count",
     "launch_counts", "reset_launch_counts", "KERNELS", "GANG_KERNELS",
     "TABLE_KERNELS", "TXN_KERNELS", "CudaKernel",
-    "SSM_STATE_SIZES", "ssm_state_update_cuda",
+    "SSM_STATE_SIZES", "ssm_state_update_cuda", "DECODE_HEAD_DIMS",
+    "DECODE_MAX_REP", "decode_attention_cuda", "STEP_KERNELS",
+    "step_launches",
 ]

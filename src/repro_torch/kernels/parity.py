@@ -1582,6 +1582,124 @@ def check_txn_kernels(probe_planes, probes, gcs, seqs, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# Decode attention (decode_attn.cu): inputs, and the bound on its gap
+# ---------------------------------------------------------------------------
+def live_slots(cur_pos: torch.Tensor, C: int) -> torch.Tensor:
+    """n_b: the ring slots row b attends, all C once the ring has wrapped
+    (``cur_pos[b] >= C``), else ``cur_pos[b] + 1``."""
+    return torch.where(cur_pos >= C, C, cur_pos + 1)
+
+
+def decode_attention_case(B: int, C: int, Hkv: int, rep: int, dh: int,
+                          dtype: torch.dtype, device, positions, scale: float,
+                          seed: int = 0, score_std: float = 1.5):
+    """One decode layer's operands: q [B, 1, Hkv * rep, dh], k and v [B, C,
+    Hkv, dh] and cur_pos [B] int32 (``positions`` for the first rows, the
+    rest drawn from [0, 2C)).  q is drawn so that the scaled scores have a
+    spread of ``score_std``; the slots a row does not hold are 100x larger,
+    which the mask has to keep out."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pos = torch.randint(0, 2 * C, (B,), generator=gen, device=device,
+                        dtype=torch.int32)
+    head = torch.as_tensor(list(positions)[:B], dtype=torch.int32)
+    pos[:len(head)] = head.to(device)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    q = draw(B, 1, Hkv * rep, dh) * (score_std / (scale * dh ** 0.5))
+    k, v = draw(B, C, Hkv, dh), draw(B, C, Hkv, dh)
+    dead = (torch.arange(C, device=device)[None, :]
+            >= live_slots(pos, C)[:, None])
+    k[dead] *= 100
+    v[dead] *= 100
+    return q.to(dtype), k.to(dtype), v.to(dtype), pos
+
+
+def decode_attention_bound(q: torch.Tensor, kc: torch.Tensor,
+                           vc: torch.Tensor, cur_pos: torch.Tensor,
+                           scale: float, o_ref: torch.Tensor) -> torch.Tensor:
+    """How far ``decode_attn.cu``'s o may lie from the plain path's
+    ``o_ref`` by their arithmetic, element by element ([B, 1, Hq, dh]).
+    Both round in the same places and differ only in the order of their
+    sums.  With u the type's unit roundoff (2^-8 bf16, 2^-24 f32):
+
+    - each side sums q.k in f32 (the two sums part by at most 2 dh 2^-24
+      sum_d |q_d k_td|) and rounds it to the type, one ulp (<= 2u |raw|)
+      apart at most: the scaled scores part by delta_t = scale (2u |raw_t|
+      + 2 dh 2^-24 sum_d |q_d k_td|) (1 + 2u);
+    - a live slot's exact probability then moves by a factor within
+      [exp(-delta_t) / D+, exp(delta_t) / D-], D+- = sum_s p_s
+      exp(+-delta_s) over the row's live slots; each side rounds p to the
+      type (u each) and sums exp in f32 in its own order (n 2^-24 each):
+      eps_t = shift_t (1 + 2u) + 2u + (2n + 8) 2^-24;
+    - the PV sums part by sum_t eps_t p_t |v_t| from p, by each side's
+      summation of its partial sums in f32 or, where the plain path's GEMM
+      reduces in the output type, in T (2u sum_t p_t |v_t| each), and by
+      each side's final rounding (2u |o|); the whole with a margin of 4u
+      for the probabilities' own rounding."""
+    B, C, G, dh = kc.shape
+    rep = q.shape[2] // G
+    u = 2.0 ** -8 if kc.dtype == torch.bfloat16 else 2.0 ** -24
+    qf = q.float().reshape(B, G, rep, dh)
+    kf = kc.float()
+    raw = torch.einsum("bgrd,btgd->bgrt", qf, kf)
+    mag = torch.einsum("bgrd,btgd->bgrt", qf.abs(), kf.abs())
+    del kf
+    n = live_slots(cur_pos, C)
+    live = (torch.arange(C, device=kc.device)[None, :] < n[:, None])
+    live = live[:, None, None, :]
+    delta = torch.where(live, scale * (2 * u * raw.abs() + 2 * dh
+                                       * 2.0 ** -24 * mag) * (1 + 2 * u), 0.0)
+    p = torch.softmax(torch.where(live, raw * scale, -torch.inf), dim=-1)
+    up, down = torch.exp(delta), torch.exp(-delta)
+    shift = torch.maximum(up / (p * down).sum(-1, keepdim=True) - 1,
+                          1 - down / (p * up).sum(-1, keepdim=True))
+    nf = n.float()[:, None, None, None]
+    eps = shift * (1 + 2 * u) + 2 * u + (2 * nf + 8) * 2.0 ** -24
+    av = vc.float().abs()
+    w = torch.einsum("bgrt,btgd->bgrd", p, av)
+    we = torch.einsum("bgrt,btgd->bgrd", p * eps, av)
+    tol = (we + 4 * u * w
+           + 2 * u * o_ref.float().reshape(B, G, rep, dh).abs()) * (1 + 4 * u)
+    return tol.reshape(B, 1, G * rep, dh)
+
+
+# How close decode_attn.cu comes to the plain path, beyond the bound: by
+# type, the least share of o's elements that are bit-equal and the largest
+# root mean square of the gap over that of the plain o, in units of the
+# type's roundoff u (2^-8 bf16, 2^-24 f32).  The bound above is the worst
+# case of the summation order, about as large as a typical |o| in bf16, so
+# a kernel one slot short or rounding p elsewhere may still pass it; these
+# limits do not let them.  Readings on one H100 (bf16, the five layers of
+# chip_smoke.py's phase 7c, four seeds each): 0.9878-0.9995 equal, rms
+# 0.006-0.096 u.  The kernel built one slot short: 0.34-0.68 equal, 2.1-11
+# u; rounding no p: 0.58-0.59 equal, 0.66-0.67 u; dropping one of its 16
+# warps' share: 0.008-0.012 equal, 62-71 u (7 of these 15 within the
+# bound).  f32 (the contract summed exactly on the CPU, the served layers'
+# widths): 10-14 u; a slot short or a warp dropped, 2e5 u and more.
+DECODE_ATTENTION_AGREEMENT = {torch.bfloat16: (0.95, 0.4),
+                              torch.float32: (0.0, 128.0)}
+
+
+def decode_attention_agreement(got: torch.Tensor,
+                               want: torch.Tensor) -> Tuple[float, float]:
+    """(the share of o's elements bit-equal to the plain path's ``want``,
+    the root mean square of their gap over that of ``want`` in units of the
+    type's roundoff), to hold against ``DECODE_ATTENTION_AGREEMENT``."""
+    u = 2.0 ** -8 if want.dtype == torch.bfloat16 else 2.0 ** -24
+    gap = (got.float() - want.float()).norm() / want.float().norm()
+    return float((got == want).float().mean()), float(gap) / u
+
+
+def decode_attention_agrees(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Whether ``got`` meets ``DECODE_ATTENTION_AGREEMENT`` for its type."""
+    equal, rms = decode_attention_agreement(got, want)
+    least, most = DECODE_ATTENTION_AGREEMENT[want.dtype]
+    return equal >= least and rms <= most
+
+
 __all__ = ["ALL_ONES", "BRANCHES", "CLASSES", "GANG_RECORD_CORNERS",
            "GANG_GROUPS_CORNERS", "GC_CORNERS", "GC_EMPTY", "GC_HIT",
            "GROUP_SAME_WAY", "GC_MISS", "GC_REPEAT",
@@ -1590,11 +1708,14 @@ __all__ = ["ALL_ONES", "BRANCHES", "CLASSES", "GANG_RECORD_CORNERS",
            "TABLE_GC_CORNERS", "TXN_CORNERS", "TXN_OWN_PASS", "TXN_PADDED",
            "TXN_SAME_SET", "check_kernels",
            "check_table_kernels", "check_txn_kernels", "cls_of_rpc",
-           "copies_operands", "fastpath_batch", "fastpath_corners",
+           "copies_operands", "DECODE_ATTENTION_AGREEMENT",
+           "decode_attention_agreement", "decode_attention_agrees",
+           "decode_attention_bound", "decode_attention_case", "fastpath_batch", "fastpath_corners",
            "gang_groups_corners", "gang_planes", "gang_record_corners",
            "gc_batch", "gc_codes", "groups_codes",
            "gc_corners", "gc_entries", "gc_planes", "group_batch", "held",
-           "key_pool", "launches_per_call", "reason_coverage", "record_batch",
+           "key_pool", "launches_per_call", "live_slots", "reason_coverage",
+           "record_batch",
            "scan_batch", "scan_codes", "scan_corners", "table_batch",
            "table_fastpath_batch", "table_fastpath_corners", "table_planes",
            "table_gc_corners", "table_record_corners", "trace", "txn_chain",

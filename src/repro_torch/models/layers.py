@@ -2,11 +2,15 @@
 window; train, prefill, and single-token decode), dense MLPs.
 
 The torch port of ``repro.models.layers``: the same arithmetic in the same
-order and types, as plain torch ops (the JAX package has no Pallas here, so
-there is no kernel to write).  Attention is written out with einsum, never
+order and types, as plain torch ops (the JAX package has no Pallas here).
+Attention is written out with einsum, never
 ``scaled_dot_product_attention``, because the port is held against this
 arithmetic: f32 scores, ``-1e30`` masking, probabilities cast to the query
-type before the PV product.  Parameters live on small ``nn.Module``s whose
+type before the PV product.  One kernel keeps that arithmetic by hand: on a
+plain CUDA cache, single-token decode attention is one launch of
+``kernels/csrc/decode_attn.cu``, which reads each row's live ring slots in
+place; elsewhere (the CPU, and DTensor caches, whose softmax spans ranks)
+it is ``sdpa_decode_plain``.  Parameters live on small ``nn.Module``s whose
 attribute names are the reference's parameter keys.
 """
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.ops import decode_attention_cuda
 from .config import ModelConfig
 from .shardctx import (
     constrain,
@@ -170,6 +175,18 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
     probs = constrain(probs, "scores5")               # stay T-sharded into PV
     o = torch.einsum("bgrst,btgd->bsgrd", probs, v)
     return merge_dims(o, 2)
+
+
+def sdpa_decode_plain(cfg: ModelConfig, q, kc, vc,
+                      cur_pos: torch.Tensor) -> torch.Tensor:
+    """One token's attention over each row's ring, as plain ops: q [B, 1,
+    Hq, dh], kc/vc [B, C, Hkv, dh], ``cur_pos`` [B] the tokens each row held
+    before this one.  A ring slot t is valid if written (t <= cur_pos) or
+    the ring has wrapped (cur_pos >= C).  Returns [B, 1, Hq, dh]."""
+    C = kc.shape[1]
+    t = torch.arange(C, device=q.device)
+    valid = (t[None, :] <= cur_pos[:, None]) | (cur_pos[:, None] >= C)
+    return _sdpa(cfg, q, kc, vc, valid[:, None, None, :])   # mask [B,1,1,C]
 
 
 def make_attn_mask(
@@ -328,7 +345,10 @@ def attention_decode(
     layers, swa_window for windowed layers.  Each sequence writes at its own
     cur_pos[b] % C, IN PLACE: an inactive row writes back the slot it holds
     (the reference drops its out-of-bounds scatter), so its K/V stay
-    untouched and no row's arithmetic depends on another's."""
+    untouched and no row's arithmetic depends on another's.  The attention
+    then reads each row's live slots: one ``decode_attn.cu`` launch on a
+    plain CUDA cache (any other head size or type there raises), else
+    ``sdpa_decode_plain``."""
     kc, vc = kv_cache
     C = kc.shape[1]
     q, k, v = _qkv(cfg, p, x)
@@ -337,11 +357,11 @@ def attention_decode(
     keep = (active > 0)[:, None, None]
     write_rows_(kc, slot, k[:, 0].to(kc.dtype), keep)
     write_rows_(vc, slot, v[:, 0].to(vc.dtype), keep)
-    # A ring slot t is valid if written (t <= pos) or the ring has wrapped.
-    t = torch.arange(C, device=x.device)
-    valid = (t[None, :] <= cur_pos[:, None]) | (cur_pos[:, None] >= C)
-    mask = valid[:, None, None, :]              # [B,1,1,C]
-    o = _sdpa(cfg, q, kc, vc, mask)
+    if getattr(kc, "placements", None) is None and kc.is_cuda:
+        o = decode_attention_cuda(q, kc, vc, cur_pos,
+                                  attn_scale(cfg, q.shape[3]))
+    else:
+        o = sdpa_decode_plain(cfg, q, kc, vc, cur_pos)
     out = merge_dims(o, 2) @ p.wo
     return out, (kc, vc)
 

@@ -33,7 +33,7 @@ import torch
 
 from ..core import WitnessGeometry
 from ..core.telemetry import enabled, get_registry, span
-from ..kernels.ops import SSM_UPDATE
+from ..kernels.ops import STEP_KERNELS, step_launches
 from ..models.config import ModelConfig
 from ..models.moe import RoutingTally
 from ..models.transformer import (
@@ -109,11 +109,12 @@ class CurpServeDriver:
         self._m_rows = reg.counter("moe.rows_computed")
         self._m_routed = reg.counter("moe.routed")
         self._rows_a_step = self._picks_a_row = 0
-        # The Mamba2 layers whose state the step updates in one launch of
-        # ``ssm_update.cu`` (its launches as the step was built; none on
-        # the CPU), counted here at each step.
-        self._m_fused = reg.counter("ssm.fused_updates")
-        self._fused_a_step = 0
+        # The step's own kernels (``ssm.fused_updates``: the Mamba2 layers
+        # whose state it updates in one launch; ``attn.fused_decodes``: the
+        # attention layers it runs in one launch), their launches as the
+        # step was built (none on the CPU), counted here at each step.
+        self._m_step = {name: reg.counter(name) for name in STEP_KERNELS}
+        self._launched_a_step: Dict[str, int] = {}
 
     @torch.no_grad()
     def _step_body(self, inputs: torch.Tensor):
@@ -122,10 +123,9 @@ class CurpServeDriver:
         Returns (f32 logits [B, V], greedy tokens [B])."""
         batch = {"tokens": inputs[0][:, None], "active": inputs[1]}
         tally = RoutingTally(inputs[1]) if self._count_routing else None
-        launched = SSM_UPDATE.launches
-        logits, _ = decode_step(self.cfg, self.params, batch, self.cache,
-                                tally)
-        self._fused_a_step = SSM_UPDATE.launches - launched
+        with step_launches() as self._launched_a_step:
+            logits, _ = decode_step(self.cfg, self.params, batch, self.cache,
+                                    tally)
         if tally is not None:
             self._rows_a_step = tally.rows
             self._picks_a_row = tally.picks_a_row
@@ -153,9 +153,10 @@ class CurpServeDriver:
         return self._logits.clone()    # the next replay overwrites _logits
 
     def _count(self, host: np.ndarray) -> None:
-        """A step's host counts: its fused Mamba2 state updates, and an MoE
+        """A step's host counts: its own kernels' launches, and an MoE
         step's routing (``host[1]`` is the step's active mask)."""
-        self._m_fused.inc(self._fused_a_step)
+        for name, n in self._launched_a_step.items():
+            self._m_step[name].inc(n)
         if self._count_routing:
             self._m_rows.inc(self._rows_a_step)
             self._m_routed.inc(self._picks_a_row

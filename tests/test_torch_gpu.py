@@ -792,3 +792,260 @@ def test_driver_counts_fused_state_updates_on_the_card(cuda):
     d.generate(4)
     assert d.graph_replays == 6
     assert counter.value - before == 3 * d.graph_replays
+
+
+# One layer's decode attention (``decode_attn.cu``) against the plain path:
+# (name, B, C, Hkv, rep, dh, positions of the first rows).  hymba-1.5b's
+# global and window layers and granite-4.0-h-small's as served, and the
+# reduced configs' head size; each with rows at 0, C - 1, exactly C, past C
+# (wrapped) and at the served windows' lengths; and the most query heads a
+# KV head may serve, whose f32 scores outgrow shared memory past 6,400 slots.
+ATTN_SHAPES = [
+    ("hymba-global", 8, 16384, 5, 5, 64, (0, 16383, 16384, 40000, 1, 1700)),
+    ("hymba-window", 8, 1024, 5, 5, 64, (0, 1023, 1024, 1700, 600, 5)),
+    ("granite", 16, 8192, 8, 4, 128, (0, 8191, 8192, 20000, 600, 550, 1)),
+    ("rep8", 16, 8192, 8, 8, 128, (0, 8191, 8192, 7000, 6000)),
+    ("reduced", 4, 32, 2, 2, 16, (0, 31, 32, 70)),
+]
+
+
+def _attn_case(cuda, shape, dtype):
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import parity
+    from repro_torch.models import reduced
+    from repro_torch.models.layers import attn_scale
+
+    _name, B, C, Hkv, rep, dh, positions = shape
+    scale = attn_scale(reduced(ARCHS["llama3.2-1b"]), dh)
+    return (*parity.decode_attention_case(B, C, Hkv, rep, dh, dtype, cuda,
+                                          positions, scale, seed=C + dh),
+            scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=[s[0] for s in ATTN_SHAPES])
+def test_decode_attention_kernel_matches_plain_version(cuda, shape, dtype):
+    """The kernel against ``sdpa_decode_plain`` (``_sdpa`` under the ring's
+    mask) on the same card tensors, in one launch, within the bound its
+    arithmetic allows (``parity.decode_attention_bound``: the two differ
+    only in the order of their f32 sums, which may move a score by an ulp
+    of the type and p by the factor that follows) and within
+    ``parity.DECODE_ATTENTION_AGREEMENT`` (the share of elements bit-equal
+    and the rms gap, which a kernel one slot short or rounding p elsewhere
+    fails).  Exactly: a row at position 0 returns its one slot's V; the
+    slots a row does not hold are never read (other values there leave o
+    bit-equal); the first and the newest live slots are read.  rep 8 in
+    f32 exceeds the shared memory for its scores past 6,400 slots (200 KiB
+    over 8 heads of 4 bytes), so its longest rows take the path that
+    recomputes them."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops, parity
+    from repro_torch.models import reduced
+    from repro_torch.models.layers import attn_scale, sdpa_decode_plain
+
+    q, k, v, pos, scale = _attn_case(cuda, shape, dtype)
+    B, C, Hkv, dh = k.shape
+    rep = q.shape[2] // Hkv
+    cfg = reduced(ARCHS["llama3.2-1b"])
+    assert attn_scale(cfg, dh) == scale
+    before = ops.DECODE_ATTN.launches
+    got = ops.decode_attention_cuda(q, k, v, pos, scale)
+    torch.cuda.synchronize()
+    assert ops.DECODE_ATTN.launches == before + 1
+    want = sdpa_decode_plain(cfg, q, k, v, pos)
+    tol = parity.decode_attention_bound(q, k, v, pos, scale, want)
+    gap = (got.float() - want.float()).abs()
+    assert bool((gap <= tol).all()), (float(gap.max()),
+                                      float((gap / tol).max()))
+    assert parity.decode_attention_agrees(got, want), \
+        parity.decode_attention_agreement(got, want)
+    n = parity.live_slots(pos, C)
+    if shape[0] == "rep8":
+        assert int(n.max()) > 200 * 1024 // (rep * 4)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    first = (pos == 0).nonzero()[:, 0]
+    assert len(first) and torch.equal(
+        got[first].view(bits),
+        v[first, 0].repeat_interleave(rep, dim=1)[:, None].view(bits))
+    dead = torch.arange(C, device=cuda)[None, :] >= n[:, None]
+    k2, v2 = k.clone(), v.clone()
+    k2[dead], v2[dead] = -k2[dead], 7.0
+    assert torch.equal(ops.decode_attention_cuda(q, k2, v2, pos, scale)
+                       .view(bits), got.view(bits))
+    rows = torch.arange(B, device=cuda)
+    for slot in (n - 1, torch.zeros_like(n)):
+        v3 = v.clone()
+        v3[rows, slot.long()] = 1e5
+        moved = ops.decode_attention_cuda(q, k, v3, pos, scale) != got
+        assert bool(moved.reshape(B, Hkv * rep, dh).any(-1).all())
+
+
+def test_attention_decode_on_the_card_matches_the_plain_path(cuda,
+                                                             monkeypatch):
+    """``attention_decode`` at hymba-1.5b's published widths in bf16 (a
+    window ring of 1024, rows wrapped and not, two of eight inactive):
+    through the kernel and through the plain path on clones of one cache.
+    The ring writes are the same bits (inactive rows untouched), and the
+    layer's output differs only within the attention's bound carried
+    through ``wo``; inactive rows are computed as the plain path computes
+    them."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops, parity
+    from repro_torch.models import layers
+    from repro_torch.models.layers import Attention, Init, attention_decode
+
+    cfg = ARCHS["hymba-1.5b"]
+    B, C, Hkv, dh = 8, cfg.swa_window, cfg.n_kv_heads, cfg.d_head
+    attn = Attention(cfg, Init(cuda, torch.bfloat16, seed=3))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((B, 1, cfg.d_model), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    kc = torch.randn((B, C, Hkv, dh), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    vc = torch.randn_like(kc)
+    pos = torch.tensor([0, 1, 500, 1022, 1023, 1024, 1700, 3000],
+                       dtype=torch.int32, device=cuda)
+    active = torch.tensor([1, 0, 1, 1, 1, 0, 1, 1], dtype=torch.int32,
+                          device=cuda)
+    positions = pos[:, None]
+    caches = [(kc.clone(), vc.clone()) for _ in range(2)]
+    before = ops.DECODE_ATTN.launches
+    got, (k1, v1) = attention_decode(cfg, attn, x, caches[0], pos,
+                                     positions, False, active)
+    assert ops.DECODE_ATTN.launches == before + 1
+    seen = {}
+
+    def plain(q, kc, vc, cur_pos, scale):
+        seen.update(q=q, scale=scale)
+        return layers.sdpa_decode_plain(cfg, q, kc, vc, cur_pos)
+
+    monkeypatch.setattr(layers, "decode_attention_cuda", plain)
+    want, (k2, v2) = attention_decode(cfg, attn, x, caches[1], pos,
+                                      positions, False, active)
+    assert ops.DECODE_ATTN.launches == before + 1
+    for a, b in ((k1, k2), (v1, v2)):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    off = active == 0
+    assert torch.equal(k1[off], kc[off]) and torch.equal(v1[off], vc[off])
+    o = layers.sdpa_decode_plain(cfg, seen["q"], k2, v2, pos)
+    tol_o = parity.decode_attention_bound(seen["q"], k2, v2, pos,
+                                          seen["scale"], o)
+    # the output projection in bf16: its inputs' gap through |wo|, and
+    # each side's rounding of its sum (2^-8 of sum |o wo| each, and as
+    # much again where the GEMM reduces in bf16)
+    wo = attn.wo.float().abs()
+    terms = o.float().reshape(B, -1).abs() @ wo
+    tol = (tol_o.reshape(B, -1) @ wo) * (1 + 2 ** -6) + 2 ** -6 * terms
+    gap = (got.float() - want.float()).abs().reshape(B, -1)
+    assert bool((gap <= tol).all()), float((gap / tol).max())
+
+
+@pytest.mark.parametrize("arch", ["granite-4.0-h-small", "hymba-1.5b"])
+def test_decode_step_attends_each_layer_in_one_launch(cuda, arch):
+    """granite-4.0-h-small at its published widths and four layers (one
+    attention) and hymba-1.5b whole (32 attention layers, three of them on
+    a 16384 ring), rows as served, in bf16, part way into their windows:
+    one eager ``decode_step`` launches the attention kernel once an
+    attention layer, and no PyTorch operation that launches work reads a
+    cache-sized tensor other than the ring write's gather and scatter of
+    each row's one slot (the einsums' copies of K and V, the scores, the
+    mask's ``where`` and the softmax over every slot are gone)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import Transformer, decode_step, init_decode_cache
+    from repro_torch.models.config import layer_has_attn
+
+    if arch == "hymba-1.5b":
+        cfg, B, max_seq = replace(ARCHS[arch], dtype="bfloat16"), 8, 16384
+    else:
+        cfg = replace(ARCHS[arch], n_layers=4,
+                      layer_types=("mamba", "attention", "mamba", "mamba"),
+                      dtype="bfloat16", moe_dispatch="capacity")
+        B, max_seq = 16, 8192
+    n_attn = sum(layer_has_attn(cfg, i) for i in range(cfg.n_layers))
+    assert n_attn == (32 if arch == "hymba-1.5b" else 1)
+    model = Transformer(cfg, device=cuda, seed=1)
+    cache = init_decode_cache(cfg, B, max_seq, device=cuda)
+    cache["pos"].copy_(torch.arange(B, dtype=torch.int32) * 97 + 500)
+    rng = np.random.default_rng(3)
+
+    def step():
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1))).int()
+        act = torch.ones(B, dtype=torch.int32)
+        act[5] = 0
+        decode_step(cfg, model, {"tokens": toks.to(cuda),
+                                 "active": act.to(cuda)}, cache)
+
+    step()                                     # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = ops.DECODE_ATTN.launches
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    assert ops.DECODE_ATTN.launches == before + n_attn
+    rings = {tuple(t.shape[1:]) for e in cache["segments"] if "k" in e
+             for t in (e["k"], e["v"])}
+    readers = {e.name for e in prof.events()
+               if rings & {tuple(s) for s in e.input_shapes} and e.kernels}
+    assert readers <= {"aten::index", "aten::index_put_",
+                       "aten::_index_put_impl_"}, readers
+    launched = sum(e.count for e in prof.key_averages()
+                   if "decode_attn_kernel" in e.key)
+    assert launched == n_attn, launched
+
+
+@pytest.mark.parametrize("arch", ["granite-4.0-h-small", "hymba-1.5b"])
+def test_driver_counts_fused_decode_attentions_on_the_card(cuda, arch):
+    """``attn.fused_decodes``: the driver adds the captured step's attention
+    layers (one in the reduced granite, two in the reduced hymba) at every
+    replay."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.telemetry import registry
+    from repro_torch.models import Transformer, reduced
+    from repro_torch.serving import CurpServeDriver, ServeConfig
+
+    cfg = reduced(ARCHS[arch], dtype="bfloat16")
+    if cfg.has_moe:
+        cfg = reduced(ARCHS[arch], dtype="bfloat16", moe_dispatch="capacity")
+    d = CurpServeDriver(cfg, ServeConfig(max_batch=4, max_seq=32,
+                                         device=cuda),
+                        params=Transformer(cfg, device=cuda, seed=2))
+    counter = registry().counter("attn.fused_decodes")
+    before = counter.value
+    d.submit("a", [5, 17, 99])
+    d.generate(4)
+    assert d.graph_replays == 6
+    per_step = 1 if cfg.layer_types else cfg.n_layers
+    assert counter.value - before == per_step * d.graph_replays
+
+
+def test_captured_decode_attention_survives_launches_of_other_shapes(cuda):
+    """A CUDA graph holding the kernel at hymba's global ring (the most
+    shared memory a launch takes) replays bit-equal to an eager launch
+    after launches at its window ring and at the reduced configs' head
+    size, which need far less: no later launch lowers what the captured
+    one may take."""
+    from repro_torch.kernels import ops, parity
+
+    big = _attn_case(cuda, ATTN_SHAPES[0], torch.bfloat16)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ops.decode_attention_cuda(*big)               # built and planned
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            held = ops.decode_attention_cuda(*big)
+    torch.cuda.current_stream().wait_stream(stream)
+    for shape in ATTN_SHAPES[1:]:
+        ops.decode_attention_cuda(*_attn_case(cuda, shape, torch.bfloat16))
+    graph.replay()
+    want = ops.decode_attention_cuda(*big)
+    torch.cuda.synchronize()
+    assert torch.equal(held.view(torch.int16), want.view(torch.int16))
+    assert parity.live_slots(big[3], big[1].shape[1]).max() > 1

@@ -325,7 +325,8 @@ def test_kernel_sources_compile_into_a_hashed_ignored_directory():
         "gang_record.cu", "gang_fastpath.cu", "gang_gc.cu", "gang_groups.cu",
         "keyhash.cu", "witness_table.cu", "fastpath_batch.cu",
         "conflict_scan.cu", "witness_txn.cu", "witness_gc.cu",
-        "witness_seq.cu", "chain_probe.cu", "ssm_update.cu"}
+        "witness_seq.cu", "chain_probe.cu", "ssm_update.cu",
+        "decode_attn.cu"}
 
 
 @pytest.mark.parametrize("name", ["gang_from_numpy", "ring_from_numpy",

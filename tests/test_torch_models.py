@@ -154,6 +154,45 @@ def test_decode_steps_match_reference(arch):
                 _close(seg["ssm"][name], ref_seg["ssm"][name])
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "hymba-1.5b"])
+def test_cpu_decode_attends_through_the_plain_path(arch, monkeypatch):
+    """On the CPU every attention layer of a decode step takes
+    ``sdpa_decode_plain`` (``_sdpa`` under the ring's mask), never the
+    card's kernel, and the steps match the reference as before: 10 steps of
+    3 rows past the reduced hymba's window of 8, logits within the file's
+    tolerance."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    cfg, params, model = _pair(arch)
+    calls = []
+    real = layers.sdpa_decode_plain
+
+    def counted(*args):
+        calls.append(args[2].shape)
+        return real(*args)
+
+    monkeypatch.setattr(layers, "sdpa_decode_plain", counted)
+    B, T = 3, 10
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab, (T, B, 1)).astype(np.int32)
+    ref_cache = init_decode_cache(cfg, B, 16)
+    cache = tm.init_decode_cache(cfg, B, 16, device="cpu")
+    step = jax.jit(lambda p, b, c: decode_step(cfg, p, b, c))
+    launched = ops.DECODE_ATTN.launches
+    for t in range(T):
+        want, ref_cache = step(params, {"tokens": jnp.asarray(toks[t])},
+                               ref_cache)
+        got, cache = tm.decode_step(cfg, model,
+                                    {"tokens": torch.from_numpy(toks[t])},
+                                    cache)
+        _close(got, want)
+    assert len(calls) == T * cfg.n_layers
+    assert ops.DECODE_ATTN.launches == launched
+    if cfg.attn == "swa":
+        assert {s[1] for s in calls} == {16, cfg.swa_window}
+
+
 def test_bf16_decode_tracks_reference():
     """The cast order in bf16 (rmsnorm casts before the weight, f32 scores,
     probabilities cast to bf16, f32 logits after the head): 8 steps of the
