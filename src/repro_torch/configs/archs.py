@@ -1,5 +1,6 @@
 """The assigned architectures, exactly as specified (source tags inline):
-the reference's 10 and granite-4.0-h-small, which the port alone runs.
+the reference's 10, and granite-4.0-h-small and kanana-2-30b-a3b, which
+the port alone runs.
 
 Every config is selectable via --arch <id> in the launchers; reduced smoke
 variants come from repro_torch.models.config.reduced().
@@ -113,11 +114,30 @@ GRANITE_4_0_H_SMALL = ModelConfig(
     attention_multiplier=0.0078125, logits_scaling=16.0,
 )
 
+KANANA_2_30B_A3B = ModelConfig(
+    # [hf:kakaocorp/kanana-2-30b-a3b-instruct-2601 config.json,
+    # model_type deepseek_v3] — the DeepSeek-V3 block without q-LoRA:
+    # MLA (latent 512, rope part 64 interleaved, nope 128, value 128),
+    # layer 0 dense (intermediate_size 6144), then 128 experts of 768
+    # top-6 by the sigmoid noaux_tc router (one group, normalised, x
+    # 2.448) and two shared experts as one MLP of 1536
+    name="kanana-2-30b-a3b", family="moe",
+    n_layers=48, d_model=2048, n_heads=32, n_kv_heads=32, d_head=192,
+    attn="mla", pos="rope", rope_theta=1_000_000.0,
+    kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+    v_head_dim=128,
+    d_ff=6144, act="swiglu", first_k_dense=1,
+    n_experts=128, top_k=6, moe_d_ff=768,
+    n_shared_experts=2, shared_d_ff=1536,
+    router_score="sigmoid", routed_scaling=2.448,
+    vocab=128_256, tie_embeddings=False, norm_eps=1e-6,
+)
+
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in [
         SMOLLM_360M, LLAMA32_1B, DEEPSEEK_CODER_33B, NEMOTRON_4_340B,
         QWEN3_MOE_30B, QWEN2_MOE_A27B, HUBERT_XLARGE, QWEN2_VL_2B,
-        MAMBA2_130M, HYMBA_1_5B, GRANITE_4_0_H_SMALL,
+        MAMBA2_130M, HYMBA_1_5B, GRANITE_4_0_H_SMALL, KANANA_2_30B_A3B,
     ]
 }
 

@@ -2,8 +2,11 @@
 
 One dataclass drives dense GQA transformers, MoE, encoder-only audio, VLM
 backbones with M-RoPE, pure SSM (Mamba2/SSD), hybrid attn+SSM in every
-layer (Hymba) and hybrids whose layers each hold one mixer, attention or
-Mamba2, as ``layer_types`` lists them (Granite 4.0-H).
+layer (Hymba), hybrids whose layers each hold one mixer, attention or
+Mamba2, as ``layer_types`` lists them (Granite 4.0-H), and the DeepSeek-V3
+block: multi-head latent attention (``attn="mla"``), leading dense layers
+(``first_k_dense``) and a sigmoid router with a correction bias
+(kanana-2-30b-a3b).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ class ModelConfig:
     n_heads: int = 0               # query heads; 0 => attention-free layer
     n_kv_heads: int = 0
     d_head: int = 64
-    attn: str = "full"             # full | swa | none
+    attn: str = "full"             # full | swa | mla | none
     swa_window: int = 1024
     global_attn_layers: Tuple[int, ...] = ()   # full-attn layers when attn=swa
     causal: bool = True            # False => encoder-only (no decode path)
@@ -30,6 +33,16 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     mrope_sections: Tuple[int, int, int] = (16, 24, 24)  # t/h/w freq split
     qk_norm: bool = False
+    # --- multi-head latent attention (attn="mla", DeepSeek-V2/V3) ----------
+    # Each token caches one latent row: kv_lora_rank normalised values and
+    # qk_rope_head_dim rotated ones, shared by every head.  A head's query
+    # and key are qk_nope_head_dim + qk_rope_head_dim wide (d_head is their
+    # sum), its value v_head_dim.  The query is one projection (no
+    # q-LoRA), and the rope part rotates pairs (2i, 2i+1), not halves.
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     # --- MLP -----------------------------------------------------------------
     d_ff: int = 0                  # dense MLP width (0 => no dense MLP)
     act: str = "swiglu"            # swiglu | relu2
@@ -42,6 +55,14 @@ class ModelConfig:
     router_aux_coef: float = 0.01
     moe_dispatch: str = "capacity"   # capacity (EP, ~active FLOPs) | dense
     moe_capacity_factor: float = 1.25
+    first_k_dense: int = 0         # leading layers with the dense MLP
+    # The router: "softmax" over the logits, top-k of the probabilities;
+    # or "sigmoid" (DeepSeek-V3's noaux_tc): top-k of the sigmoids plus a
+    # per-expert correction bias, weighted by the unbiased sigmoids.  The
+    # picks' weights are renormalised to sum to 1, then multiplied by
+    # routed_scaling.
+    router_score: str = "softmax"
+    routed_scaling: float = 1.0
     # --- SSM (Mamba2 / SSD) ---------------------------------------------------
     ssm: bool = False              # present in every layer (pure or hybrid)
     ssm_state: int = 0             # N
@@ -75,6 +96,19 @@ class ModelConfig:
                 or not set(self.layer_types) <= {"attention", "mamba"}):
             raise ValueError(f"layer_types must give 'attention' or 'mamba' "
                              f"for each of the {self.n_layers} layers")
+        if self.router_score not in ("softmax", "sigmoid"):
+            raise ValueError(f"router_score {self.router_score!r}: "
+                             f"'softmax' or 'sigmoid'")
+        if self.attn == "mla":
+            if (self.d_head != self.qk_nope_head_dim + self.qk_rope_head_dim
+                    or self.n_kv_heads != self.n_heads or self.pos != "rope"
+                    or min(self.kv_lora_rank, self.qk_rope_head_dim,
+                           self.v_head_dim) <= 0):
+                raise ValueError(
+                    "multi-head latent attention needs kv_lora_rank, "
+                    "qk_rope_head_dim and v_head_dim > 0, d_head = "
+                    "qk_nope_head_dim + qk_rope_head_dim, n_kv_heads = "
+                    "n_heads and pos 'rope'")
 
     # ---- derived -------------------------------------------------------------
     @property
@@ -113,7 +147,13 @@ class ModelConfig:
         return self.causal
 
     def layer_is_global(self, i: int) -> bool:
-        return self.attn == "full" or i in self.global_attn_layers
+        return self.attn in ("full", "mla") or i in self.global_attn_layers
+
+    @property
+    def latent_width(self) -> int:
+        """Values an MLA layer caches a token: the normalised latent and
+        the rotated key part."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
 
     def n_params(self) -> int:
         """Analytic parameter count (for 6·N·D roofline math).  Leaves out
@@ -122,20 +162,27 @@ class ModelConfig:
         n = self.vocab * d                                   # embed
         if not self.tie_embeddings:
             n += d * self.vocab                              # lm head
-        attn = ssm = 0
-        if self.has_attn:
+        attn = ssm = mlp = moe = 0
+        if self.attn == "mla":
+            h, r = self.n_heads, self.kv_lora_rank
+            attn += d * h * dh                               # wq
+            attn += d * self.latent_width + r                # wkv_a, kv_norm
+            attn += r * h * (self.qk_nope_head_dim + self.v_head_dim)
+            attn += h * self.v_head_dim * d                  # wo
+        elif self.has_attn:
             attn += d * self.n_heads * dh                    # wq
             attn += 2 * d * self.n_kv_heads * dh             # wk, wv
             attn += self.n_heads * dh * d                    # wo
-        per_layer = 0
         if self.has_dense_mlp:
             mults = 3 if self.act == "swiglu" else 2
-            per_layer += mults * d * self.d_ff
+            mlp = mults * d * self.d_ff
         if self.has_moe:
-            per_layer += d * self.n_experts                  # router
-            per_layer += self.n_experts * 3 * d * self.moe_d_ff
+            moe += d * self.n_experts                        # router
+            if self.router_score == "sigmoid":
+                moe += self.n_experts                        # its bias
+            moe += self.n_experts * 3 * d * self.moe_d_ff
             if self.n_shared_experts:
-                per_layer += 3 * d * self.shared_d_ff
+                moe += 3 * d * self.shared_d_ff
         if self.ssm:
             di, g, N, h = (self.ssm_d_inner, self.ssm_groups,
                            self.ssm_state, self.ssm_heads)
@@ -143,10 +190,14 @@ class ModelConfig:
             ssm += self.ssm_conv_dim * self.ssm_conv         # conv
             ssm += 3 * h + di                                # A, D, dt_bias, norm
             ssm += di * d                                    # out_proj
-        per_layer += 2 * d                                   # norms
         for i in range(self.n_layers):
-            n += per_layer + (attn if layer_has_attn(self, i) else 0) \
+            n += 2 * d                                       # norms
+            n += (attn if layer_has_attn(self, i) else 0) \
                 + (ssm if layer_has_ssm(self, i) else 0)
+            if layer_has_moe(self, i):
+                n += moe
+            elif self.has_dense_mlp:
+                n += mlp
         return n
 
     def n_active_params(self) -> int:
@@ -155,7 +206,8 @@ class ModelConfig:
             return self.n_params()
         d = self.d_model
         full = self.n_params()
-        inactive = self.n_layers * (self.n_experts - self.top_k) * 3 * d * self.moe_d_ff
+        n_moe = sum(layer_has_moe(self, i) for i in range(self.n_layers))
+        inactive = n_moe * (self.n_experts - self.top_k) * 3 * d * self.moe_d_ff
         return full - inactive
 
 
@@ -170,6 +222,12 @@ def layer_has_ssm(cfg, i: int) -> bool:
     """Layer ``i`` holds the Mamba2 mixer."""
     return cfg.ssm and (not cfg.layer_types
                         or cfg.layer_types[i] == "mamba")
+
+
+def layer_has_moe(cfg, i: int) -> bool:
+    """Layer ``i`` holds the MoE (every layer past the ``first_k_dense``
+    leading ones, which hold the dense MLP)."""
+    return cfg.has_moe and i >= cfg.first_k_dense
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
@@ -199,6 +257,11 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     if cfg.layer_types:     # one layer of each mixer kind, and two more
         base.update(n_layers=4,
                     layer_types=("mamba", "attention", "mamba", "mamba"))
+    if cfg.attn == "mla":    # every latent width kept distinct
+        base.update(n_kv_heads=4, d_head=24, kv_lora_rank=32,
+                    qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=12)
+    if cfg.first_k_dense:    # one dense layer, then two MoE
+        base.update(n_layers=3, first_k_dense=1)
     if cfg.frontend != "token":
         base["frontend_dim"] = 32
     if cfg.pos == "mrope":

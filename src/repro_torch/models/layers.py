@@ -1,5 +1,7 @@
 """Shared model layers: norms, RoPE / M-RoPE, GQA attention (full + sliding
-window; train, prefill, and single-token decode), dense MLPs.
+window; train, prefill, and single-token decode), multi-head latent
+attention (MLA: expanded for train and prefill, absorbed over a latent
+cache for decode), dense MLPs.
 
 The torch port of ``repro.models.layers``: the same arithmetic in the same
 order and types, as plain torch ops (the JAX package has no Pallas here).
@@ -115,6 +117,20 @@ def apply_mrope(
     return _rotate(x, pos_sel.float() * freqs)
 
 
+def rope_pairs(x: torch.Tensor, pos: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, d]; pos: [B, S].  Interleaved RoPE: each pair (2i,
+    2i+1) rotated by pos * theta^(-2i/d), as DeepSeek-V3's complex
+    rotation (its config's ``rope_interleave``); MLA's rope part."""
+    ang = pos[..., None].float() * rope_freqs(x.shape[-1], theta, x.device)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xp = x.float().unflatten(-1, (-1, 2))
+    x1, x2 = xp[..., 0], xp[..., 1]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.flatten(-2).to(x.dtype)
+
+
 def _position_embed(cfg: ModelConfig, q, k, positions):
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -159,7 +175,8 @@ def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor):
 
 
 def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
-    """q: [B,S,Hq,dh]; k,v: [B,T,Hkv,dh]; mask: [B,1,S,T] or broadcastable.
+    """q, k: [B,S,Hq,dh], [B,T,Hkv,dh]; v: [B,T,Hkv,dv]; mask: [B,1,S,T]
+    or broadcastable.
 
     Grouped GQA form (no KV head repeat): scores in f32, masked with -1e30,
     softmax in f32, probabilities cast to q's type for the PV product.  The
@@ -173,7 +190,7 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
     logits = torch.where(mask[:, :, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     probs = constrain(probs, "scores5")               # stay T-sharded into PV
-    o = torch.einsum("bgrst,btgd->bsgrd", probs, v)
+    o = torch.einsum("bgrst,btge->bsgre", probs, v)
     return merge_dims(o, 2)
 
 
@@ -211,7 +228,7 @@ def _sdpa_blockwise(
     Python loop where the reference scans).  Never materializes the S x S
     score matrix; GQA is computed grouped (no KV head repeat)."""
     B, S, Hq, dh = q.shape
-    Hkv = k.shape[2]
+    Hkv, dv = k.shape[2], v.shape[3]
     rep = Hq // Hkv
     if S % 16 == 0 and S // 16 >= 128:
         qb = S // 16
@@ -223,10 +240,10 @@ def _sdpa_blockwise(
     dev = q.device
     qg = q.reshape(B, nq, qb, Hkv, rep, dh)
     kg = k.reshape(B, nk, kvb, Hkv, dh)
-    vg = v.reshape(B, nk, kvb, Hkv, dh)
+    vg = v.reshape(B, nk, kvb, Hkv, dv)
     q_pos = torch.arange(S, device=dev).reshape(nq, qb)
 
-    acc = torch.zeros((B, nq, qb, Hkv, rep, dh), dtype=torch.float32,
+    acc = torch.zeros((B, nq, qb, Hkv, rep, dv), dtype=torch.float32,
                       device=dev)
     m = torch.full((B, nq, qb, Hkv, rep), -math.inf, dtype=torch.float32,
                    device=dev)
@@ -249,12 +266,12 @@ def _sdpa_blockwise(
         alpha = torch.exp(m - new_m)
         pexp = torch.exp(logits - new_m[..., None])
         acc = acc * alpha[..., None] + torch.einsum(
-            "bnqhrk,bkhd->bnqhrd", pexp.to(q.dtype), vblk
+            "bnqhrk,bkhe->bnqhre", pexp.to(q.dtype), vblk
         ).float()
         l = l * alpha + torch.sum(pexp, dim=-1)
         m = new_m
     out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.reshape(B, S, Hq, dh).to(q.dtype)
+    return out.reshape(B, S, Hq, dv).to(q.dtype)
 
 
 def _sdpa_blockwise_flat(
@@ -364,6 +381,107 @@ def attention_decode(
         o = sdpa_decode_plain(cfg, q, kc, vc, cur_pos)
     out = merge_dims(o, 2) @ p.wo
     return out, (kc, vc)
+
+
+# ----------------------------------------------------------------------------
+# multi-head latent attention
+# ----------------------------------------------------------------------------
+class MLA(nn.Module):
+    """DeepSeek-V3's attention without q-LoRA: ``wq`` gives each head's
+    query (qk_nope_head_dim, then qk_rope_head_dim); ``wkv_a`` the
+    token's latent (kv_lora_rank, normalised by ``kv_norm``) and its
+    shared key part (qk_rope_head_dim); ``wkv_b`` each head's key part
+    and value (qk_nope_head_dim, then v_head_dim) from the latent."""
+
+    def __init__(self, cfg: ModelConfig, init: Init) -> None:
+        super().__init__()
+        d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+        s = d ** -0.5
+        self.wq = init.normal((d, h * cfg.d_head), s)
+        self.wkv_a = init.normal((d, cfg.latent_width), s)
+        self.kv_norm = init.full((r,), 1.0)
+        self.wkv_b = init.normal(
+            (r, h * (cfg.qk_nope_head_dim + cfg.v_head_dim)), r ** -0.5)
+        self.wo = init.normal((h * cfg.v_head_dim, d),
+                              (h * cfg.v_head_dim) ** -0.5)
+
+
+def mla_query(cfg: ModelConfig, p: MLA, x, positions):
+    """Each head's query parts [B, S, H, qk_nope_head_dim] and, rotated,
+    [B, S, H, qk_rope_head_dim]."""
+    q = split_dim(x @ p.wq, -1, (cfg.n_heads, cfg.d_head))
+    q_nope, q_pe = torch.split(
+        q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
+    return q_nope, rope_pairs(q_pe, positions, cfg.rope_theta)
+
+
+def mla_latent(cfg: ModelConfig, p: MLA, x, positions):
+    """What a token caches, [B, S, kv_lora_rank + qk_rope_head_dim]: its
+    latent after ``kv_norm``, then its key part rotated at its
+    position."""
+    c, k_pe = torch.split(x @ p.wkv_a,
+                          [cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
+    c = rmsnorm(c, p.kv_norm, cfg.norm_eps)
+    k_pe = rope_pairs(k_pe[:, :, None, :], positions,
+                      cfg.rope_theta)[:, :, 0]
+    return torch.cat([c, k_pe], dim=-1)
+
+
+def mla_train(cfg: ModelConfig, p: MLA, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """The expanded form (train, prefill): per-head K = [latent @ W_UK,
+    the shared rotated key part] and V = latent @ W_UV, causal attention
+    at 1/sqrt(d_head)."""
+    B, S, _ = x.shape
+    H, dn, r = cfg.n_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    q_nope, q_pe = mla_query(cfg, p, x, positions)
+    c, k_pe = torch.split(mla_latent(cfg, p, x, positions),
+                          [r, cfg.qk_rope_head_dim], dim=-1)
+    k_nope, v = torch.split(split_dim(c @ p.wkv_b, -1,
+                                      (H, dn + cfg.v_head_dim)),
+                            [dn, cfg.v_head_dim], dim=-1)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
+        B, S, H, cfg.qk_rope_head_dim)], dim=-1)
+    if S > 1024:
+        o = _sdpa_blockwise(cfg, q, k, v, is_global=True)
+    else:
+        o = _sdpa(cfg, q, k, v, make_attn_mask(cfg, S, True, x.device))
+    return merge_dims(o, 2) @ p.wo
+
+
+def mla_decode(
+    cfg: ModelConfig, p: MLA, x: torch.Tensor, latent: torch.Tensor,
+    cur_pos: torch.Tensor, positions: torch.Tensor, active: torch.Tensor,
+) -> torch.Tensor:
+    """Single-token MLA over the latent cache, absorbed: ``latent`` [B, C,
+    kv_lora_rank + qk_rope_head_dim] holds each row's tokens at ``pos %
+    C``.  The row's new latent is written in place at ``cur_pos`` (an
+    inactive row writes back its slot); then q_lat = q_nope W_UK, scores
+    [q_lat, q_pe] . latent at 1/sqrt(d_head) over the row's valid slots
+    (as ``sdpa_decode_plain``'s), o = softmax . latent's first
+    kv_lora_rank values, times W_UV and ``wo``.  No per-head K or V is
+    formed."""
+    B, C, _ = latent.shape
+    H, dn, r = cfg.n_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    q_nope, q_pe = mla_query(cfg, p, x, positions)
+    row = mla_latent(cfg, p, x, positions)[:, 0]
+    write_rows_(latent, (cur_pos % C).long(), row.to(latent.dtype),
+                (active > 0)[:, None])
+    w_uk, w_uv = torch.split(split_dim(p.wkv_b, -1,
+                                       (H, dn + cfg.v_head_dim)),
+                             [dn, cfg.v_head_dim], dim=-1)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
+    q_all = torch.cat([q_lat, q_pe[:, 0].to(q_lat.dtype)], dim=-1)
+    scores = torch.einsum("bhc,btc->bht", q_all, latent).float() \
+        * attn_scale(cfg, cfg.d_head)
+    t = torch.arange(C, device=x.device)
+    valid = (t[None, :] <= cur_pos[:, None]) | (cur_pos[:, None] >= C)
+    scores = torch.where(valid[:, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bht,btr->bhr", probs, latent[..., :r])
+    o = torch.einsum("bhr,rhv->bhv", o_lat, w_uv)
+    return o.reshape(B, 1, H * cfg.v_head_dim) @ p.wo
 
 
 # ----------------------------------------------------------------------------

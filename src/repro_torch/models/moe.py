@@ -1,5 +1,6 @@
-"""Mixture-of-Experts layer: top-k softmax routing, optional shared experts
-(Qwen-MoE style), dense one-hot dispatch or capacity-bounded dispatch.
+"""Mixture-of-Experts layer: top-k softmax routing, or DeepSeek-V3's sigmoid
+routing with a correction bias, optional shared experts (Qwen-MoE style),
+dense one-hot dispatch or capacity-bounded dispatch.
 
 The torch port of ``repro.models.moe``.  Load-balancing aux loss follows
 Switch Transformer (fraction-of-tokens x mean-router-prob per expert).
@@ -29,6 +30,8 @@ class MoE(nn.Module):
         super().__init__()
         d, e, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
         self.router = init.normal((d, e), d ** -0.5)
+        if cfg.router_score == "sigmoid":
+            self.correction_bias = init.full((e,), 0.0)
         self.w_gate = init.normal((e, d, ff), d ** -0.5)
         self.w_up = init.normal((e, d, ff), d ** -0.5)
         self.w_down = init.normal((e, ff, d), ff ** -0.5)
@@ -76,12 +79,41 @@ def _capacity(cfg: ModelConfig, n: int) -> int:
     return -(-C // 64) * 64
 
 
-def _route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
+def _route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor,
+           bias=None):
+    """(probabilities [..., E], the picks' weights and the picks [..., K]).
+    ``bias``: the sigmoid router's correction bias, if it has one."""
+    if cfg.router_score == "sigmoid":
+        return route_sigmoid(cfg, router, bias, x)
     logits = (x @ router).float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
-    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)   # renormalize
-    return probs, top_p, top_i
+    return probs, _weigh(cfg, top_p), top_i
+
+
+def route_sigmoid(cfg: ModelConfig, router, bias, x):
+    """DeepSeek-V3's noaux_tc routing (one expert group): logits in f32,
+    scores their sigmoids; picks the top-k of scores + ``bias``, weighs
+    them by their unbiased scores."""
+    scores = torch.sigmoid(x.float() @ router.float())
+    choice = scores if bias is None else scores + bias.float()
+    top_i = torch.topk(choice, cfg.top_k, dim=-1).indices
+    return scores, _weigh(cfg, torch.gather(scores, -1, top_i)), top_i
+
+
+def _weigh(cfg: ModelConfig, top_p: torch.Tensor) -> torch.Tensor:
+    """The picks' weights: renormalised to sum to 1, then times
+    ``routed_scaling`` (where it is not 1).  DeepSeek-V3 adds 1e-20 to the
+    sum, which leaves any f32 sum above ~1e-12 unchanged: a sum of
+    sigmoids or softmax probabilities never comes near it."""
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    if cfg.routed_scaling != 1.0:
+        top_p = top_p * cfg.routed_scaling
+    return top_p
+
+
+def _bias(p: MoE):
+    return getattr(p, "correction_bias", None)
 
 
 def _shared(cfg: ModelConfig, p: MoE, x: torch.Tensor, out: torch.Tensor):
@@ -97,7 +129,7 @@ def moe_mlp(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense dispatch.  x: [B, S, D] -> (out [B, S, D], aux_loss scalar)."""
     E = cfg.n_experts
-    probs, top_p, top_i = _route(cfg, p.router, x)            # [B,S,K]
+    probs, top_p, top_i = _route(cfg, p.router, x, _bias(p))  # [B,S,K]
     if tally is not None:                 # every expert over every row
         picks = F.one_hot(top_i, E).sum(dim=2).reshape(-1, E)
         tally.add(picks, E * picks.shape[0], cfg.top_k)
@@ -135,7 +167,7 @@ def moe_mlp_capacity(
     E, K = cfg.n_experts, cfg.top_k
     N = B * S
     xf = x.reshape(N, D)
-    probs, top_p, top_i = _route(cfg, p.router, xf)           # [N, K]
+    probs, top_p, top_i = _route(cfg, p.router, xf, _bias(p))  # [N, K]
 
     C = _capacity(cfg, N)
     tok_onehot = F.one_hot(top_i, E).sum(dim=1)               # [N,E]
@@ -393,6 +425,10 @@ def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor, tally=None):
     :class:`RoutingTally`) takes the live rows' picks."""
     if (cfg.moe_dispatch == "capacity" and get_rule("moe_ep") is not None
             and cfg.n_experts and get_rule("residual") is not None):
+        if cfg.router_score == "sigmoid":
+            raise NotImplementedError(
+                "the expert-parallel dispatch does not carry the sigmoid "
+                "router's correction bias")
         mesh = get_rule("moe_ep").mesh
         tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 0)
         if tp and cfg.n_experts % tp == 0:

@@ -13,7 +13,11 @@ keeps the reference's layout, per segment of ``segments(cfg)``:
 KV for SWA layers and ``max_seq`` KV for global ones.  Where
 ``cfg.layer_types`` gives each layer one mixer (Granite 4.0-H), each
 attention layer is a "single" segment holding only its K/V and each run of
-Mamba2 layers a "scan" segment holding only SSM state.  ``decode_step``
+Mamba2 layers a "scan" segment holding only SSM state.  Multi-head
+latent attention (``attn="mla"``) caches one latent row a token a layer
+(``latent``: kv_lora_rank + qk_rope_head_dim values), never per-head K/V.
+Layers before ``first_k_dense`` hold the dense MLP, the rest the MoE.
+``decode_step``
 writes the cache in place, its positions too.  Every entry point places
 its tensors on ``device`` ("cuda" unless the caller asks for another) and
 raises when it names a CUDA device and none is present: nothing falls back
@@ -27,13 +31,16 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .config import ModelConfig, layer_has_attn, layer_has_ssm
+from .config import ModelConfig, layer_has_attn, layer_has_moe, layer_has_ssm
 from .layers import (
+    MLA,
     MLP,
     Attention,
     Init,
     attention_decode,
     attention_train,
+    mla_decode,
+    mla_train,
     mlp,
     rmsnorm,
 )
@@ -99,10 +106,10 @@ class Block(nn.Module):
         super().__init__()
         self.norm1 = init.full((cfg.d_model,), 1.0)
         if layer_has_attn(cfg, i):
-            self.attn = Attention(cfg, init)
+            self.attn = (MLA if cfg.attn == "mla" else Attention)(cfg, init)
         if layer_has_ssm(cfg, i):
             self.ssm = SSM(cfg, init)
-        if cfg.has_moe:
+        if layer_has_moe(cfg, i):
             self.norm2 = init.full((cfg.d_model,), 1.0)
             self.moe = MoE(cfg, init)
         elif cfg.has_dense_mlp:
@@ -196,14 +203,16 @@ def _residual(cfg: ModelConfig, x, out):
 def _block_train(cfg: ModelConfig, p: Block, x, positions, is_global: bool):
     h = rmsnorm(x, p.norm1, cfg.norm_eps)
     parts = []
-    if hasattr(p, "attn"):
+    if isinstance(getattr(p, "attn", None), MLA):
+        parts.append(mla_train(cfg, p.attn, h, positions))
+    elif hasattr(p, "attn"):
         parts.append(attention_train(cfg, p.attn, h, positions, is_global))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if hasattr(p, "ssm"):
         parts.append(ssm_train(cfg, p.ssm, h))
     mix = parts[0] if len(parts) == 1 else (parts[0] + parts[1]) * 0.5
     x = _residual(cfg, x, mix)
-    if cfg.has_moe:
+    if hasattr(p, "moe"):
         h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
         out, aux = moe_forward(cfg, p.moe, h2)
         x = _residual(cfg, x, out)
@@ -299,7 +308,11 @@ def init_decode_cache(
     for kind, s, e in segments(cfg):
         n = e - s
         entry: Dict[str, Any] = {}
-        if layer_has_attn(cfg, s):
+        if layer_has_attn(cfg, s) and cfg.attn == "mla":
+            entry["latent"] = torch.zeros(
+                (n, batch, max_seq, cfg.latent_width), dtype=dtype,
+                device=device)
+        elif layer_has_attn(cfg, s):
             is_global = cfg.layer_is_global(s) if kind == "single" else (
                 cfg.attn == "full"
             )
@@ -317,6 +330,15 @@ def init_decode_cache(
             "segments": segs}
 
 
+def latent_slots(cache: Dict) -> Tuple[int, int, int]:
+    """(MLA layers, rows, slots a row) of a decode cache's latent entries:
+    what each step's MLA attention reads.  (0, 0, 0) without MLA."""
+    shapes = [e["latent"].shape for e in cache["segments"] if "latent" in e]
+    if not shapes:
+        return 0, 0, 0
+    return sum(s[0] for s in shapes), shapes[0][1], shapes[0][2]
+
+
 def cache_tensors(cache: Dict) -> List[torch.Tensor]:
     """Every tensor of a decode cache, "pos" first, in a fixed order."""
     out = [cache["pos"]]
@@ -331,6 +353,9 @@ def _block_decode(cfg: ModelConfig, p: Block, x, entry, j: int, cur_pos,
     """Layer ``j`` of a segment's cache ``entry``, written in place."""
     h = rmsnorm(x, p.norm1, cfg.norm_eps)
     parts = []
+    if "latent" in entry:
+        parts.append(mla_decode(cfg, p.attn, h, entry["latent"][j], cur_pos,
+                                positions, active))
     if "k" in entry:
         o, _ = attention_decode(
             cfg, p.attn, h, (entry["k"][j], entry["v"][j]), cur_pos,
@@ -346,7 +371,7 @@ def _block_decode(cfg: ModelConfig, p: Block, x, entry, j: int, cur_pos,
         parts.append(o)
     mix = parts[0] if len(parts) == 1 else (parts[0] + parts[1]) * 0.5
     x = _residual(cfg, x, mix)
-    if cfg.has_moe:
+    if hasattr(p, "moe"):
         h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
         out, _ = moe_forward(cfg, p.moe, h2, tally)
         x = _residual(cfg, x, out)

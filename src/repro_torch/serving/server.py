@@ -41,6 +41,7 @@ from ..models.transformer import (
     cache_tensors,
     decode_step,
     init_decode_cache,
+    latent_slots,
     resolve_device,
 )
 from .kvstore import CurpSessionStore, SessionState
@@ -115,6 +116,14 @@ class CurpServeDriver:
         # step was built (none on the CPU), counted here at each step.
         self._m_step = {name: reg.counter(name) for name in STEP_KERNELS}
         self._launched_a_step: Dict[str, int] = {}
+        # An MLA step's latent slots: those its attention reads (every
+        # row's whole cache in each MLA layer, as the step is built) and
+        # those holding a live row's context, from the host's copy of the
+        # rows' positions.
+        self._mla_layers, _rows, self._mla_slots = latent_slots(self.cache)
+        self._count_mla = self._mla_layers > 0 and enabled()
+        self._m_slots_read = reg.counter("mla.slots_read")
+        self._m_slots_live = reg.counter("mla.slots_live")
 
     @torch.no_grad()
     def _step_body(self, inputs: torch.Tensor):
@@ -153,14 +162,21 @@ class CurpServeDriver:
         return self._logits.clone()    # the next replay overwrites _logits
 
     def _count(self, host: np.ndarray) -> None:
-        """A step's host counts: its own kernels' launches, and an MoE
-        step's routing (``host[1]`` is the step's active mask)."""
+        """A step's host counts: its own kernels' launches, an MoE step's
+        routing and an MLA step's latent slots (``host[1]`` is the step's
+        active mask); then each live row's position moves on."""
+        live = host[1] > 0
         for name, n in self._launched_a_step.items():
             self._m_step[name].inc(n)
         if self._count_routing:
             self._m_rows.inc(self._rows_a_step)
-            self._m_routed.inc(self._picks_a_row
-                               * int(np.count_nonzero(host[1])))
+            self._m_routed.inc(self._picks_a_row * int(np.count_nonzero(live)))
+        if self._count_mla:
+            L, C = self._mla_layers, self._mla_slots
+            self._m_slots_read.inc(L * self.serve.max_batch * C)
+            self._m_slots_live.inc(L * int(np.minimum(self._pos[live] + 1,
+                                                      C).sum()))
+        self._pos += live
 
     def _capture(self) -> None:
         """Capture the decode step as a CUDA graph, once.  The warm-up and
@@ -219,6 +235,7 @@ class CurpServeDriver:
             for t in cache_tensors(self.cache):
                 t.zero_()
             self._check_addresses()
+        self._pos = np.zeros(self.serve.max_batch, np.int64)  # cache "pos"
         self.slots: List[Optional[str]] = [None] * self.serve.max_batch
 
     # -- session management --------------------------------------------------------

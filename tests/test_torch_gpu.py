@@ -1049,3 +1049,134 @@ def test_captured_decode_attention_survives_launches_of_other_shapes(cuda):
     torch.cuda.synchronize()
     assert torch.equal(held.view(torch.int16), want.view(torch.int16))
     assert parity.live_slots(big[3], big[1].shape[1]).max() > 1
+
+
+def test_kanana_serving_graph_matches_eager_decode_on_the_card(cuda):
+    """Reduced kanana-2-30b-a3b in bf16 (multi-head latent attention over
+    the latent cache, one dense layer, 8 experts top-2 by the sigmoid
+    router with its correction bias, capacity dispatch, a shared expert),
+    served through the driver: every decode is one replay of the captured
+    graph, held against eager ``decode_step`` on a clone of the cache, to
+    the bound of the granite test above (0.25 on logits and caches, tokens
+    equal where the eager top-2 margin exceeds it: only the dispatch's
+    float atomic adds may sum in another order).  The MLA layers never
+    launch A1, and the driver counts their latent slots and the MoE
+    layers' picks (the dense layer routes nothing)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.telemetry import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import Transformer, reduced
+    from repro_torch.serving import CurpServeDriver, ServeConfig
+
+    cfg = reduced(ARCHS["kanana-2-30b-a3b"], dtype="bfloat16",
+                  moe_dispatch="capacity")
+    model = Transformer(cfg, device=cuda, seed=4)
+    with torch.no_grad():                 # a bias that moves some picks
+        for block in model.blocks[cfg.first_k_dense:]:
+            block.moe.correction_bias.normal_(0.0, 0.2)
+    d = CurpServeDriver(cfg, ServeConfig(
+        max_batch=4, max_seq=32, n_shards=2, witness_backend="device",
+        device=cuda), params=model)
+    names = ("moe.routed", "mla.slots_read", "mla.slots_live")
+    before = {n: registry().counter(n).value for n in names}
+    launched = ops.DECODE_ATTN.launches
+    log = []
+    _against_eager(d, log)
+    d.submit("a", [5, 17, 99])
+    d.submit("b", [1, 2])
+    d.submit("c", [7, 7, 3, 12, 40])
+    d.generate(12)
+    assert d.crash_and_recover()["recovered_sessions"] == 3
+    d.generate(12)
+    assert d._graph is not None and d.graph_replays == len(log) > 24
+    assert [set(e) for e in d.cache["segments"]] == [{"latent"}]
+    assert ops.DECODE_ATTN.launches == launched
+    tol = 0.25
+    for got, want, active, apart in log:
+        top2 = torch.topk(want[active], 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > tol
+        assert torch.equal(got.argmax(-1)[active][sure],
+                           want.argmax(-1)[active][sure])
+        assert float((got - want)[active].abs().max()) <= tol
+        assert apart <= tol
+    live = sum(int(a.sum()) for _g, _w, a, _d in log)
+    got = {n: registry().counter(n).value - before[n] for n in names}
+    assert got["moe.routed"] == live * cfg.top_k * (cfg.n_layers
+                                                    - cfg.first_k_dense)
+    assert got["mla.slots_read"] == len(log) * cfg.n_layers * 4 * 32
+    assert 0 < got["mla.slots_live"] < got["mla.slots_read"]
+
+
+def _mla_expanded(cfg, attn, x, latent, cur_pos, scale, short=0):
+    """One token's MLA in the expanded form, in f32 from the same bf16
+    values: per head K = [latent W_UK, k_pe], V = latent W_UV, over each
+    row's valid slots (``short`` fewer: a planted fault)."""
+    from repro_torch.models.layers import mla_query
+
+    B, C, _ = latent.shape
+    H, dn, dv, r = (cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim,
+                    cfg.kv_lora_rank)
+    f32 = {n: t.float() for n, t in attn.named_parameters()}
+    q_nope, q_pe = mla_query(cfg, attn, x, cur_pos[:, None])
+    q = torch.cat([q_nope, q_pe], -1)[:, 0].float()          # [B, H, 192]
+    w_kv = f32["wkv_b"].view(r, H, dn + dv)
+    out = torch.empty((B, H * dv), device=x.device)
+    for b in range(B):
+        n = min(int(cur_pos[b]) + 1, C)
+        n -= short if n > 1 else 0
+        lat = latent[b, :n].float()
+        k = torch.cat([torch.einsum("tr,rhn->thn", lat[:, :r],
+                                    w_kv[..., :dn]),
+                       lat[:, None, r:].expand(n, H, -1)], -1)
+        v = torch.einsum("tr,rhv->thv", lat[:, :r], w_kv[..., dn:])
+        p = torch.softmax(torch.einsum("hd,thd->ht", q[b], k) * scale, -1)
+        out[b] = torch.einsum("ht,thv->hv", p, v).reshape(-1)
+    return out @ f32["wo"]
+
+
+def test_mla_decode_at_the_cells_shape_matches_the_expanded_form(cuda):
+    """One MLA decode layer at kanana's published widths and the cell's
+    shape (32 rows x 4096 latent slots of 512 + 64, bf16; rows at 0, 1,
+    mid, full and wrapped, a quarter inactive) against the expanded form
+    in f32 on the same bf16 values.  The cache write is the new latent
+    row at ``cur_pos % C`` for active rows and nothing else.  Tolerance:
+    each row's rms gap at most 2^-5 of its output's rms, room for the absorbed
+    path's seven bf16 roundings in series (q, q_lat, the cache row,
+    probabilities, o_lat, o, the output; 2^-9 relative each) carried
+    through sums of thousands of terms; one slot short or the scale
+    1/sqrt(128) reads well past it, checked here."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.layers import MLA, Init, mla_decode, mla_latent
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["kanana-2-30b-a3b"]
+    B, C = 32, 4096
+    attn = MLA(cfg, Init(cuda, torch.bfloat16, seed=3))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((B, 1, cfg.d_model), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    latent = torch.randn((B, C, cfg.latent_width), generator=gen,
+                         device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([0, 1, 2, 100, 700, 900, 2047, 4094, 4095, 4096, 5000,
+                        9000] + list(range(300, 300 + 20 * 37, 37)),
+                       dtype=torch.int32, device=cuda)
+    active = (torch.arange(B, device=cuda) % 4 != 3).to(torch.int32)
+    before = latent.clone()
+    with torch.no_grad():
+        got = mla_decode(cfg, attn, x, latent, pos, pos[:, None], active)
+        row = mla_latent(cfg, attn, x, pos[:, None])[:, 0]
+        slot = (pos % C).long()
+        b = torch.arange(B, device=cuda)
+        want_cache = before.clone()
+        want_cache[b[active > 0], slot[active > 0]] = row[active > 0]
+        assert torch.equal(latent.view(torch.int16),
+                           want_cache.view(torch.int16))
+        gaps = {}
+        for name, scale, short in (("sound", cfg.d_head ** -0.5, 0),
+                                   ("short", cfg.d_head ** -0.5, 1),
+                                   ("scale", 128 ** -0.5, 0)):
+            want = _mla_expanded(cfg, attn, x, latent, pos, scale, short)
+            gaps[name] = float(((got[:, 0].float() - want).pow(2).mean(-1)
+                                / want.pow(2).mean(-1)).sqrt().max())
+    assert gaps["sound"] <= 2 ** -5, gaps
+    assert min(gaps["short"], gaps["scale"]) > 4 * 2 ** -5, gaps

@@ -73,15 +73,21 @@ def test_port_exports_the_reference_names():
 
 def test_port_configs_are_the_reference_configs():
     """Every reference config is in the port, field for field, and the
-    port's own fields (Granite's mixer list and scalars) sit at their
-    defaults there; the port's one extra arch is granite-4.0-h-small."""
-    assert PORT_ARCHS.keys() - ARCHS.keys() == {"granite-4.0-h-small"}
+    port's own fields (Granite's mixer list and scalars; kanana's latent
+    attention, leading dense layers and sigmoid router) sit at their
+    defaults there; the port's extra archs are granite-4.0-h-small and
+    kanana-2-30b-a3b."""
+    assert PORT_ARCHS.keys() - ARCHS.keys() == {"granite-4.0-h-small",
+                                                "kanana-2-30b-a3b"}
     ref_fields = {f.name for f in dataclasses.fields(type(ARCHS["smollm-360m"]))}
     defaults = {f.name: f.default for f in dataclasses.fields(tm.ModelConfig)
                 if f.name not in ref_fields}
     assert set(defaults) == {"layer_types", "embedding_multiplier",
                              "residual_multiplier", "attention_multiplier",
-                             "logits_scaling"}
+                             "logits_scaling", "kv_lora_rank",
+                             "qk_nope_head_dim", "qk_rope_head_dim",
+                             "v_head_dim", "first_k_dense", "router_score",
+                             "routed_scaling"}
     for name, cfg in ARCHS.items():
         port = dataclasses.asdict(PORT_ARCHS[name])
         assert {k: port.pop(k) for k in defaults} == defaults
